@@ -1,0 +1,66 @@
+# YOLO-LPs model config (reference: configs/yololps.py)
+model = dict(
+    type="YOLOv6s",
+    pretrained=None,
+    depth_multiple=0.33,
+    width_multiple=0.50,
+    backbone=dict(
+        type="EfficientRep",
+        num_repeats=[1, 6, 12, 18, 6],
+        out_channels=[64, 128, 256, 512, 1024],
+        fuse_P2=True,
+        cspsppf=True,
+    ),
+    neck=dict(
+        type="RepBiFPANNeck",
+        num_repeats=[12, 12, 12, 12],
+        out_channels=[256, 128, 128, 256, 256, 512],
+    ),
+    head=dict(
+        type="EffiDeHead",
+        in_channels=[128, 256, 512],
+        num_layers=3,
+        begin_indices=24,
+        anchors=3,
+        anchors_init=[[10, 13, 19, 19, 33, 23],
+                      [30, 61, 59, 59, 59, 119],
+                      [116, 90, 185, 185, 373, 326]],
+        out_indices=[17, 20, 23],
+        strides=[8, 16, 32],
+        atss_warmup_epoch=0,
+        iou_type="giou",
+        use_dfl=False,
+        reg_max=0,
+        distill_weight={"class": 1.0, "dfl": 1.0},
+    ),
+)
+
+solver = dict(
+    optim="SGD",
+    lr_scheduler="Cosine",
+    lr0=0.01,
+    lrf=0.01,
+    momentum=0.937,
+    weight_decay=0.0005,
+    warmup_epochs=3.0,
+    warmup_momentum=0.8,
+    warmup_bias_lr=0.1,
+)
+
+data_aug = dict(
+    hsv_h=0.015,
+    hsv_s=0.7,
+    hsv_v=0.4,
+    degrees=20.0,
+    translate=0.1,
+    scale=0.5,
+    shear=0.0,
+    flipud=0.0,
+    fliplr=0.0,
+    mosaic=1.0,
+    mixup=0.0,
+    generate=1.0,
+    gen_paste=0.5,
+)
+
+training_mode = "repvgg"
