@@ -19,7 +19,30 @@ toolkit. Phases, each of which raises on failure:
      with TF32 off on the card against the port on the CPU;
   5. times, by CUDA events: end-to-end img/s at batch 32 in bf16 and fp32, a
      torch.profiler table of one bf16 batch by kernel, and the NMS kernel and
-     its plain version on the main path's own candidates.
+     its plain version on the main path's own candidates;
+  6. the int8 conv kernel against its plain PyTorch version, exact equality:
+     every RepBlock chain geometry of yololps at 640 with N = 32 (int8 out
+     with relu, then bf16 and fp32 exits), a 3x3/s2, 1x1 with O = 277 and 12,
+     an int8 out without relu, entry codes at -128 and 127, the accumulator
+     mode and a C that takes the byte-gather path;
+  7. the int8 main path: calibrate (max) on two batches of the seeded frames
+     on the card, write and reload the amax json, install
+     `make_int8_infer_fn(conv_impl="pallas")` as the inferer's `_run` (as the
+     CLI's --int8 does) and run `detect_batch` on the 32 frames, reading both
+     kernels' launch counts around that call; the kernel against plain on a
+     chain link's own entry codes from the run; the card's int8 decode
+     through the plain NMS on the CPU (exact); one image with
+     conv_impl="conv" in fp32 (TF32 off) on the card against the CPU port:
+     every int8 module of the port on the CPU, fed the card's own input,
+     gives the card's output bit for bit, and the two decodes differ by no
+     more than int8's own quantization noise on that image (a float conv,
+     the stem or an upsample, sums in another order on the card, which flips
+     a few codes; with random weights each flip spreads, so the decodes are
+     not held to a fixed bound);
+  8. int8 times: img/s at batch 32 beside phase 5's bf16, a profiler table
+     of one int8 batch, and every distinct int8 conv launch of the main path
+     timed alone (kernel, plain version, bound, and a cuDNN bf16 conv of the
+     same shape as a reference point).
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -45,8 +68,10 @@ TOPK = 512  # the NMS's pre_nms_topk: the kernel's K on the main path
 # fp32 card-vs-CPU decode: cuDNN and the CPU library sum conv products in
 # other orders (and may pick Winograd), compounded over ~70 convs.
 FP32_RTOL, FP32_ATOL_PX, FP32_ATOL_SCORE = 2e-3, 0.1, 2e-3
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor fp32 op/s
-HBM_BYTES_S, FP32_OPS_S = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 op/s and
+# dense int8 tensor-core op/s
+HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
+
 # operations per (i, j) pair of the IoU bitmask: 2 max, 2 min, 2 sub, 2 clip,
 # 1 mul, 2 add, 1 sub, 1 div, 1 compare; plus 5 per box for its area
 IOU_PAIR_OPS, AREA_OPS = 15, 5
@@ -135,7 +160,7 @@ def frames(rng):
             for i in range(BATCH)]
 
 
-def profile_batch(fn, card: str, calls: int = 2) -> dict:
+def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2) -> dict:
     """Device time by kernel over `calls` warm calls of `fn`, by torch.profiler,
     beside the window's CUDA-event time: where an end-to-end batch goes."""
     from torch.autograd import DeviceType
@@ -157,12 +182,12 @@ def profile_batch(fn, card: str, calls: int = 2) -> dict:
             kernels[e.key] = getattr(e, "self_device_time_total", 0) / 1e3 / calls
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    print(f"[{card}] profile, one bf16 batch of {BATCH}: window {window_ms:.3f} ms, "
+    print(f"[{card}] profile, one {label} batch of {BATCH}: window {window_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), "
           f"{len(kernels)} kernel names")
     for name, ms in top:
         print(f"  {ms:8.3f} ms {100 * ms / window_ms:5.1f}%  {name[:110]}")
-    return dict(window_ms=window_ms, busy_ms=busy_ms, top=top)
+    return dict(window_ms=window_ms, busy_ms=busy_ms, top=top, by_name=kernels)
 
 
 def phase_kernels(cuda_nms, rng, dev):
@@ -182,6 +207,285 @@ def phase_kernels(cuda_nms, rng, dev):
               f"kept {int(got.sum())}/{got.numel()}")
     return worst
 
+# yololps at 640: (RepBlock, S, C = O, links) of every deploy chain
+CHAINS = [("backbone/ERBlock_2_rep", 160, 64, 2), ("backbone/ERBlock_3_rep", 80, 128, 4),
+          ("backbone/ERBlock_4_rep", 40, 256, 6), ("backbone/ERBlock_5_rep", 20, 512, 2),
+          ("neck/Rep_p4", 40, 128, 4), ("neck/Rep_p3", 80, 64, 4),
+          ("neck/Rep_n3", 40, 128, 4), ("neck/Rep_n4", 20, 256, 4)]
+
+
+def int8_specs():
+    """name -> (N, H, C, O, K, stride, relu, out_dtype, extreme codes)."""
+    specs = {}
+    for s, c in sorted({(s, c) for _, s, c, _ in CHAINS}, reverse=True):
+        for dt in (torch.int8, torch.bfloat16, torch.float32):
+            specs[f"chain_S{s}_C{c}_{str(dt)[6:]}"] = (BATCH, s, c, c, 3, 1, True, dt, False)
+    specs["3x3_s2_160to80_C64_O128"] = (BATCH, 160, 64, 128, 3, 2, True, torch.int8, False)
+    specs["1x1_O277_bf16"] = (BATCH, 80, 64, 277, 1, 1, False, torch.bfloat16, False)
+    specs["1x1_O12_bf16"] = (BATCH, 80, 64, 12, 1, 1, False, torch.bfloat16, False)
+    specs["int8_no_relu"] = (BATCH, 40, 128, 128, 3, 1, False, torch.int8, False)
+    specs["extreme_codes"] = (4, 40, 128, 128, 3, 1, True, torch.int8, True)
+    specs["accumulator_int32"] = (4, 40, 128, 64, 3, 1, False, torch.int32, True)
+    specs["C24_byte_gather"] = (4, 33, 24, 40, 3, 2, True, torch.int8, False)
+    return specs
+
+
+def int8_case(rng, spec):
+    """(x (N, H, W, C) int8, w (O, K, K, C) int8, a, b, stride, relu,
+    out_dtype) on the host, for one spec of int8_specs()."""
+    n, h, c, o, k, stride, relu, dt, extremes = spec
+    x = rng.integers(-128, 128, (n, h, h, c)).astype(np.int8)
+    if extremes:
+        x.reshape(-1)[::7] = -128
+        x.reshape(-1)[3::7] = 127
+    w = rng.integers(-128, 128, (o, k, k, c)).astype(np.int8)
+    # scales as a calibrated link has them: codes land across [-128, 127]
+    a = (rng.uniform(0.5, 2.0, o) * 127.0 / (3.0 * 128 * 128 * np.sqrt(k * k * c))).astype(np.float32)
+    b = rng.normal(0, 8, o).astype(np.float32)
+    return x, w, a, b, stride, relu, dt
+
+
+def check_int8(cuda_conv, x, w, a, b, stride, relu, dt, what):
+    """Kernel against plain on card tensors: equal to the bit; |diff| max."""
+    got = cuda_conv.int8_conv_cuda(x, w, a, b, stride, relu, dt)
+    torch.cuda.synchronize()
+    want = cuda_conv.int8_conv_plain(x, w, a, b, stride, relu, dt)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"int8_conv [{what}]: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    err = float((got.double() - want.double()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"int8_conv kernel != plain [{what}]: max |diff| {err}, "
+                             f"{int((got != want).sum())} of {got.numel()} differ")
+    return got, err
+
+
+def phase_int8_kernels(cuda_conv, rng, dev):
+    worst = 0.0
+    for name, spec in int8_specs().items():
+        x, w, a, b, stride, relu, dt = int8_case(rng, spec)
+        args = [torch.from_numpy(t).to(dev) for t in (x, w, a, b)]
+        got, err = check_int8(cuda_conv, *args, stride, relu, dt, name)
+        worst = max(worst, err)
+        span = f"{int(got.min())}..{int(got.max())}" if not got.is_floating_point() \
+            else f"{float(got.min()):.3g}..{float(got.max()):.3g}"
+        print(f"int8_conv kernel vs plain [{name}] x {tuple(x.shape)} w {tuple(w.shape)} "
+              f"s{stride} -> {str(dt)[6:]}: equal, range {span}")
+    return worst
+
+
+class LaunchLog:
+    """Forward pre-hooks on the int8 modules that record each int8 conv
+    launch's geometry (N, H, W, C, O, K, stride, relu, out dtype)."""
+
+    def __init__(self, int8_model, int8_mod):
+        self.launches, self.chain_inputs, self.handles = [], {}, []
+        for name, m in int8_model.named_modules():
+            if isinstance(m, int8_mod.Int8Conv2d):
+                self.handles.append(m.register_forward_pre_hook(self._conv))
+            elif isinstance(m, int8_mod.Int8RepBlock):
+                self.handles.append(m.register_forward_pre_hook(self._chain(name.replace(".", "/"))))
+
+    def _conv(self, m, args):
+        x = args[0]
+        n, c, h, w = x.shape
+        self.launches.append((n, h, w, c, m.w_q.shape[0], m.w_q.shape[1], m.stride, m.handoff,
+                              m.out_dtype(x)))
+
+    def _chain(self, path):
+        def hook(m, args):
+            x = args[0]
+            self.chain_inputs[path] = x
+            n, c, h, w = x.shape
+            for w_q, _, _, dt in m.links_for(x)[1]:
+                self.launches.append((n, h, w, c, w_q.shape[0], 3, 1, True, dt))
+                c = w_q.shape[0]
+        return hook
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def int8_bound(n, h, w, c, o, k, stride, dt):
+    """(bound ms, bound_by, ops, bytes) of one launch: each input byte read
+    once, each output byte written once, 2 ops a MAC at the int8 peak."""
+    ho, wo = (h + 2 * (k // 2) - k) // stride + 1, (w + 2 * (k // 2) - k) // stride + 1
+    out_b = torch.empty((), dtype=dt).element_size()
+    nbytes = n * h * w * c + o * k * k * c + 8 * o + n * ho * wo * o * out_b
+    ops = 2 * n * ho * wo * o * k * k * c
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b > t_o else "operations"), ops, nbytes
+
+
+def time_int8_launches(cuda_conv, counts, rng, dev, card):
+    """Every distinct int8 conv launch of one main-path batch, timed alone by
+    CUDA events: the kernel, its plain version, the bound, and a cuDNN bf16
+    conv of the same shape (a reference point: no PyTorch call computes this
+    int8 function on CUDA). Returns per-batch totals and the rows."""
+    import torch.nn.functional as F
+
+    rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0, ops=0, bytes=0)
+    for (n, h, w, c, o, k, stride, relu, dt), count in sorted(counts.items(), key=lambda kv: -kv[0][1]):
+        x = torch.from_numpy(rng.integers(-128, 128, (n, h, w, c)).astype(np.int8)).to(dev)
+        wq = torch.from_numpy(rng.integers(-128, 128, (o, k, k, c)).astype(np.int8)).to(dev)
+        a = torch.full((o,), 1e-5, device=dev)
+        b = torch.zeros(o, device=dev)
+        for _ in range(3):
+            cuda_conv.int8_conv_cuda(x, wq, a, b, stride, relu, dt)
+        ms = float(np.median(cuda_ms(lambda: cuda_conv.int8_conv_cuda(x, wq, a, b, stride, relu, dt), 10)))
+        plain_ms = float(np.median(cuda_ms(lambda: cuda_conv.int8_conv_plain(x, wq, a, b, stride, relu, dt), 1, 3)))
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)  # NCHW view, channels_last
+        wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bb = b.to(torch.bfloat16)
+        ref_ms = float(np.median(cuda_ms(lambda: F.conv2d(xb, wb, bb, stride, k // 2), 10)))
+        bound_ms, bound_by, ops, nbytes = int8_bound(n, h, w, c, o, k, stride, dt)
+        row = dict(shape=[n, h, w, c, o, k, stride], relu=bool(relu), out=str(dt)[6:], launches=count,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   cudnn_bf16_ms=ref_ms)
+        rows.append(row)
+        for key in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms"):
+            tot[key] += count * row[key]
+        tot["ops"] += count * ops
+        tot["bytes"] += count * nbytes
+        print(f"[{card}] int8_conv N{n} {h}x{w} C{c}->O{o} k{k} s{stride} {row['out']}: "
+              f"x{count}/batch, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+              f"by {bound_by} ({100 * bound_ms / ms:.1f}% of it), cuDNN bf16 conv (reference) {ref_ms:.4f} ms")
+    return tot, rows
+
+
+def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer32, cpu32):
+    """The int8 main path (phase 7) and its times (phase 8)."""
+    import collections
+    import tempfile
+
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops.nms import non_max_suppression, select_candidates
+    from yololp_tpu_torch.quant import int8_infer
+    from yololp_tpu_torch.quant.quantize import calibrate, load_amax, save_amax
+
+    inferer8 = Inferer(".", weights, cfg, img_size=IMG, half=True, iou_thres=0.45,
+                       max_det=1000, device=dev)
+    batch2 = np.stack([inferer8.precess_image(im) for im in frames(rng)])
+    t0 = time.perf_counter()
+    amax = calibrate(inferer8.model, [batch, batch2], method="max", device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_amax(amax, os.path.join(tmp, "amax.json"))
+        amax = load_amax(os.path.join(tmp, "amax.json"))
+    print(f"calibrated {len(amax)} conv inputs (max, 2 batches of {BATCH}) in "
+          f"{time.perf_counter() - t0:.1f} s; amax {min(amax.values()):.3g}..{max(amax.values()):.3g}")
+
+    kw = dict(iou_thres=0.45, max_det=1000, conv_impl="pallas", device=dev)
+    pred8 = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, amax,
+                                          with_nms=False, **kw)(batch)
+    anchors = pred8.shape[1]
+    _, score_all, _ = select_candidates(pred8, 0.0, anchors)
+    conf = float(score_all[:, min(2 * TOPK, anchors) - 1].min())
+    inferer8.conf_thres = conf
+    run8 = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, amax,
+                                         conf_thres=conf, **kw)
+    inferer8._run = run8
+    inferer8.warmup()
+    log = LaunchLog(run8.int8_model, int8_infer)
+
+    cuda_conv.launches = cuda_nms.launches = 0
+    dets = inferer8.detect_batch(imgs)
+    torch.cuda.synchronize()
+    launches, nms_launches = cuda_conv.launches, cuda_nms.launches
+    log.remove()
+    if launches < 30 or nms_launches < 1:
+        raise AssertionError(f"int8 main path launched int8_conv {launches}x, greedy_nms {nms_launches}x")
+    if launches != len(log.launches):
+        raise AssertionError(f"{launches} int8_conv launches, {len(log.launches)} recorded")
+    n_max = min(inferer8.max_det, TOPK)
+    for d in dets:
+        if d.ndim != 2 or d.shape[1] != 28 or len(d) > n_max or not np.isfinite(d).all():
+            raise AssertionError(f"bad int8 detections {d.shape}")
+    if len(dets) != BATCH or min(len(d) for d in dets) == 0:
+        raise AssertionError("an image came back without detections on the int8 path")
+    chain_launches = sum(links for _, _, _, links in CHAINS)
+    print(f"int8 main path: yololps {IMG}px bf16, batch {BATCH}, conv_impl pallas, conf_thres {conf:.6f}, "
+          f"int8_conv launches {launches} ({chain_launches} chain links), greedy_nms launches "
+          f"{nms_launches}, detections per image {min(map(len, dets))}..{max(map(len, dets))}")
+
+    # the kernel on a chain link's own entry codes from the run
+    path = "backbone/ERBlock_3_rep"
+    blk = run8.int8_model.get_submodule(path.replace("/", "."))
+    xq = log.chain_inputs[path]
+    if xq.dtype != torch.int8:
+        raise AssertionError(f"{path} took {xq.dtype}, not the handed-off int8 codes")
+    w_q, a, b, dt = blk.fused[1][0]
+    _, err = check_int8(cuda_conv, xq.permute(0, 2, 3, 1).contiguous(), w_q, a, b, 1, True, dt,
+                        f"{path} link 0 on its own entry codes")
+    print(f"int8_conv kernel == plain on {path} link 0's entry codes from the run "
+          f"{tuple(xq.shape)} (codes {int(xq.min())}..{int(xq.max())})")
+
+    pred8 = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, amax,
+                                          with_nms=False, **kw)(batch)
+    if pred8.shape != (BATCH, anchors, 290) or not torch.isfinite(pred8).all():
+        raise AssertionError(f"int8 decode {tuple(pred8.shape)}")
+    nkw = dict(conf_thres=conf, iou_thres=0.45, max_det=1000)
+    card_out = non_max_suppression(pred8, **nkw)
+    cpu_out = non_max_suppression(pred8.cpu(), **nkw)
+    for name, a, b in zip(("det", "valid", "num"), card_out, cpu_out):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"card NMS != plain CPU NMS on the int8 decode ({name})")
+    print(f"int8 decode: card NMS == plain CPU NMS; kept {int(cpu_out[2].min())}..{int(cpu_out[2].max())}")
+
+    # one image, conv plan (exit handoffs on), fp32 with TF32 off: card vs CPU
+    one = batch[:1]
+    kw32 = dict(with_nms=False, conv_impl="conv")
+    f_card = int8_infer.make_int8_infer_fn(inferer32.model, inferer32.variables, amax,
+                                           device=dev, **kw32)
+    f_cpu = int8_infer.make_int8_infer_fn(cpu32.model, cpu32.variables, amax, device="cpu", **kw32)
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, a, o, n=n: seen.append((n, a[0], o)))
+             for n, m in f_card.int8_model.named_modules()
+             if isinstance(m, (int8_infer.Int8Conv2d, int8_infer.Int8RepBlock))]
+    p_card = f_card(one).cpu()
+    for h in hooks:
+        h.remove()
+    p_cpu = f_cpu(one)
+    cpu_mods = dict(f_cpu.int8_model.named_modules())
+    with torch.inference_mode():
+        for n, x_in, y in seen:
+            if not torch.equal(cpu_mods[n](x_in.cpu()), y.cpu()):
+                raise AssertionError(f"int8 module {n}: the CPU port on the card's input != the card")
+        p_float = cpu32.predict(one)
+    diff = [float((p_card[..., c] - p_cpu[..., c]).abs().max()) for c in (slice(0, 13), slice(13, None))]
+    noise = [float((p_cpu[..., c] - p_float[..., c]).abs().max()) for c in (slice(0, 13), slice(13, None))]
+    print(f"int8 fp32 (conv_impl conv, exit handoffs on), card (TF32 off) vs CPU port: each of the "
+          f"{len(seen)} int8 modules, fed the card's own input, gives the card's output bit for bit")
+    print(f"int8 fp32 decode, card vs CPU: max |diff| {diff[0]:.4g} px, {diff[1]:.4g} score; int8 "
+          f"quantization noise on this image (int8 vs fp32 float model, CPU): {noise[0]:.4g} px, "
+          f"{noise[1]:.4g} score")
+    if not (diff[0] <= noise[0] and diff[1] <= noise[1]):
+        raise AssertionError("the card-vs-CPU int8 decode differs by more than int8's own noise")
+    err_px, err_score = diff
+
+    # 8. times
+    for _ in range(3):
+        run8(batch)
+    ms = cuda_ms(lambda: run8(batch), 2)
+    img_s = BATCH * 1e3 / float(np.median(ms))
+    print(f"[{card}] end-to-end int8 (pallas plan, bf16 exits) batch {BATCH}: {img_s:.1f} img/s "
+          f"(median of 5 windows of 2 batches, {np.median(ms):.3f} ms per batch, CUDA events); "
+          f"bf16 in this run: {results['e2e_bf16']['img_s']:.1f} img/s")
+    profile = profile_batch(lambda: run8(batch), card, label="int8")
+    kernel_dev_ms = sum(v for k, v in profile["by_name"].items() if "int8_conv_kernel" in k)
+    print(f"[{card}] int8_conv kernels in the profiled batch: {kernel_dev_ms:.3f} ms of "
+          f"{profile['window_ms']:.3f} ms ({100 * kernel_dev_ms / profile['window_ms']:.1f}%)")
+    tot, rows = time_int8_launches(cuda_conv, collections.Counter(log.launches), rng, dev, card)
+    print(f"[{card}] int8_conv, all {launches} launches of one batch timed alone: kernel "
+          f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms, "
+          f"cuDNN bf16 reference {tot['cudnn_bf16_ms']:.3f} ms")
+    results["int8"] = dict(launches=launches, nms_launches=nms_launches, conf_thres=conf,
+                           fp32_err_px=err_px, fp32_err_score=err_score, fp32_noise=noise, median_ms=float(np.median(ms)),
+                           img_s=img_s, runs_ms=ms, profile=profile, kernel_profile_ms=kernel_dev_ms,
+                           per_batch=tot, launches_timed=rows)
+    return launches, err, tot
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -193,7 +497,7 @@ def main():
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
     from yololp_tpu_torch.models.yolo import build_model
-    from yololp_tpu_torch.ops import _build, cuda_nms
+    from yololp_tpu_torch.ops import _build, cuda_conv, cuda_nms
     from yololp_tpu_torch.ops.nms import non_max_suppression, select_candidates
     from yololp_tpu_torch.utils.config import Config
 
@@ -314,11 +618,24 @@ def main():
     print(f"[{card}] greedy_nms B={b} K={k}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(CUDA events, median of 5 windows of 100 and 4 calls), bound {bound_ms:.5f} ms by {bound_by}")
 
+    # 6. int8 kernel vs plain; 7-8. the int8 main path and its times
+    int8_err = phase_int8_kernels(cuda_conv, rng, dev)
+    int8_launches, run_err, tot = phase_int8_main(results, card, dev, cfg, weights, batch, imgs,
+                                                  rng, inferer32, cpu32)
+
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
                 "replaces": "yololp_tpu/ops/pallas_nms.py:29",
                 "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "matches_plain": True},
+               {"name": "int8_conv", "route": "cuda",
+                "source": "yololp_tpu_torch/csrc/int8_conv.cu",
+                "replaces": "yololp_tpu/ops/pallas_conv.py:58",
+                "launches": int8_launches, "max_abs_err": max(int8_err, run_err),
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_S > tot["ops"] / INT8_OPS_S
+                else "operations",
                 "library_ms": None, "matches_plain": True}]
     results["kernels"] = kernels
     if args.out:

@@ -1,4 +1,4 @@
-"""The greedy-NMS CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: each test skips without a card (the kernel has no CPU or
 interpret mode). The machine with the card has no JAX, so run these there
@@ -6,17 +6,20 @@ without the JAX-pinning conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-The cases are chip_smoke.py's: clustered boxes at the main path's B = 32,
-K = 512, a conf-gated zero tail, exact score ties, degenerate boxes, a
-128-deep chain and K = 1024. The keep-mask must be equal, not close.
+The cases are chip_smoke.py's. greedy_nms: clustered boxes at the main
+path's B = 32, K = 512, a conf-gated zero tail, exact score ties, degenerate
+boxes, a 128-deep chain and K = 1024; the keep-mask must be equal, not
+close. int8_conv: every RepBlock chain geometry of yololps at 640 (N = 32),
+a 3x3/s2, 1x1 with O = 277 and 12, int8 without relu, extreme codes, the
+accumulator and a C that is not a multiple of 16; equal to the bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import mask_cases
-from yololp_tpu_torch.ops import cuda_nms
+from chip_smoke import int8_case, int8_specs, mask_cases
+from yololp_tpu_torch.ops import cuda_conv, cuda_nms
 
 CASES = ["clustered_B32_K512", "conf_gated_zero_tail", "exact_score_ties",
          "degenerate_boxes", "chain_128_deep", "clustered_K1024"]
@@ -52,3 +55,32 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         cuda_nms.greedy_nms_mask(boxes.transpose(0, 1), torch.ones(8, 2, device=cuda_device), 0.45)
     empty = cuda_nms.greedy_nms_mask(boxes[:0], torch.ones(0, 8, device=cuda_device), 0.45)
     assert empty.shape == (0, 8)
+
+
+INT8_CASES = list(int8_specs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_conv_kernel_equals_plain(case, cuda_device):
+    x, w, a, b, stride, relu, dt = int8_case(np.random.default_rng(2), int8_specs()[case])
+    args = [torch.from_numpy(t).to(cuda_device) for t in (x, w, a, b)]
+    before = cuda_conv.launches
+    got = cuda_conv.int8_conv(*args, stride, relu, dt)
+    torch.cuda.synchronize()
+    assert cuda_conv.launches == before + 1
+    assert got.dtype == dt
+    assert torch.equal(got, cuda_conv.int8_conv_plain(*args, stride, relu, dt))
+
+
+@pytest.mark.cuda
+def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros(1, 8, 8, 32, dtype=torch.int8, device=cuda_device)
+    w = torch.zeros(16, 3, 3, 32, dtype=torch.int8, device=cuda_device)
+    a = torch.ones(16, device=cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        cuda_conv.int8_conv(x.float(), w, a, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_conv.int8_conv(x.permute(0, 2, 1, 3), w, a, a)
+    with pytest.raises(TypeError, match="out_dtype"):
+        cuda_conv.int8_conv(x, w, a, a, out_dtype=torch.float16)

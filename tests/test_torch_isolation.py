@@ -70,3 +70,26 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     # the CPU is taken only when asked for, and then runs the plain NMS
     inf = Inferer(str(tmp_path), None, "yololpn", img_size=64, half=False, device="cpu")
     assert len(inf.detect_batch([np.zeros((64, 64, 3), np.uint8)])) == 1
+
+
+def test_int8_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.quant.int8_infer import make_int8_infer_fn
+    from yololp_tpu_torch.quant.quantize import calibrate, save_amax
+    from yololp_tpu_torch.tools.infer import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inf = Inferer(str(tmp_path), None, "yololpn", img_size=64, half=False, device="cpu")
+    batch = np.zeros((1, 64, 64, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibrate(inf.model, [batch])
+    amax = calibrate(inf.model, [batch], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_int8_infer_fn(inf.model, inf.variables, amax)
+    save_amax(amax, str(tmp_path / "amax.json"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--source", str(tmp_path), "--conf-file", "yololpn", "--not-save-img",
+              "--int8", "--calib-pt", str(tmp_path / "amax.json")])
+    # the CPU is taken only when asked for, and then runs the plain int8 conv
+    det, _, _ = make_int8_infer_fn(inf.model, inf.variables, amax, device="cpu")(batch)
+    assert det.device.type == "cpu"

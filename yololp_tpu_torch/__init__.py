@@ -3,7 +3,8 @@
 Deploy-mode license-plate inference of the yololps/yololpn configs: uint8
 NHWC batch -> /255 -> fused RepVGG forward (EfficientRep + RepBiFPANNeck + LP
 Detect) -> 290-column decode -> NMS whose greedy keep-mask runs in a
-hand-written CUDA kernel (csrc/greedy_nms.cu).
+hand-written CUDA kernel (csrc/greedy_nms.cu). True-int8 inference
+(quant/) runs every calibrated conv in a second one (csrc/int8_conv.cu).
 
 The package imports torch, numpy and the standard library only; cv2 and
 msgpack are imported inside the functions that need them. Entry points take

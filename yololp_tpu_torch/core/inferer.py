@@ -78,6 +78,9 @@ class Inferer:
         else:
             # weight-free random init (demo/smoke path)
             model = fuse_model(build_model(config, npro, nalp, nads, device="cpu"))
+        # the fp32 deploy weights, as the JAX inferer's `variables` (the int8
+        # path quantizes its kernels from these)
+        self.variables = {k: v.detach().clone() for k, v in model.state_dict().items()}
         self.model = model.to(self.device, self.dtype).to(
             memory_format=torch.channels_last).eval()
         self.source = source

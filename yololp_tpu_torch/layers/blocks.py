@@ -112,6 +112,10 @@ class RepBlock(nn.Module):
 
 
 def _max_pool5(x):
+    if x.dtype == torch.int8:
+        # int8 codes (an int8 handoff through the SPPF) pool in bf16, which
+        # holds every code exactly: CUDA's max-pool may not take int8
+        return F.max_pool2d(x.to(torch.bfloat16), 5, stride=1, padding=2).to(torch.int8)
     return F.max_pool2d(x, 5, stride=1, padding=2)
 
 

@@ -1,0 +1,204 @@
+"""int8 convolution with a fused per-out-channel epilogue: the CUDA kernel
+csrc/int8_conv.cu and its plain PyTorch version.
+
+Counterpart of yololp_tpu/ops/pallas_conv.py. `int8_conv` runs the kernel on
+a CUDA tensor and the plain version on a CPU tensor; on a CUDA tensor it
+launches the kernel or raises. `launches` counts the kernel's launches.
+
+Layouts are the kernel's: activations NHWC, weights (O, KH, KW, C), one
+contiguous reduction vector per output channel. KH = KW in {1, 3}, stride in
+{1, 2}, padding KH // 2 on every side (the port's convs).
+
+Epilogue (per output channel o): y = acc * a[o] + b[o] as a multiply and an
+add rounded separately, then int8 `clip(round_half_even(y), 0 if relu else
+-128, 127)`, or a float `relu(y)` in fp32 or bf16, or (out_dtype int32) the
+accumulator itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from yololp_tpu_torch.ops import _build
+
+launches = 0
+
+_MODES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2, torch.int32: 3}
+
+
+def out_size(h: int, kh: int, stride: int) -> int:
+    return (h + 2 * (kh // 2) - kh) // stride + 1
+
+
+def int8_conv_acc_plain(x_q: torch.Tensor, w_q: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The exact int32 accumulator (N, Ho, Wo, O) of x_q (N, H, W, C) int8 and
+    w_q (O, KH, KW, C) int8. The conv runs in fp64, where every partial sum
+    is an integer below 2**53 and so exact in any order (fp32 is not:
+    |acc| reaches 9 * C * 128**2 > 2**24)."""
+    kh = w_q.shape[1]
+    y = F.conv2d(x_q.permute(0, 3, 1, 2).double(), w_q.permute(0, 3, 1, 2).double(),
+                 stride=stride, padding=kh // 2)
+    return y.round().to(torch.int32).permute(0, 2, 3, 1).contiguous()
+
+
+def epilogue_plain(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor, relu: bool,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's epilogue on an int32 accumulator (..., O), in fp32."""
+    if out_dtype == torch.int32:
+        return acc
+    y = acc.float() * a.float()
+    y = y + b.float()
+    if out_dtype == torch.int8:
+        return torch.round(y).clamp(0.0 if relu else -128.0, 127.0).to(torch.int8)
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+def int8_conv_plain(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
+                    out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: exact accumulator, then the same
+    epilogue. Returns (N, Ho, Wo, O) contiguous."""
+    return epilogue_plain(int8_conv_acc_plain(x_q, w_q, stride), a, b, relu, out_dtype)
+
+
+def _check(x_q, w_q, a, b, stride, out_dtype):
+    if x_q.dim() != 4 or w_q.dim() != 4:
+        raise ValueError(f"x_q must be (N, H, W, C) and w_q (O, KH, KW, C), got "
+                         f"{tuple(x_q.shape)} and {tuple(w_q.shape)}")
+    o, kh, kw, c = w_q.shape
+    if kh != kw or kh not in (1, 3):
+        raise ValueError(f"kernel {kh}x{kw}: only 1x1 and 3x3 are supported")
+    if stride not in (1, 2):
+        raise ValueError(f"stride {stride}: only 1 and 2 are supported")
+    if x_q.shape[-1] != c:
+        raise ValueError(f"x_q has {x_q.shape[-1]} channels, w_q {c}")
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"x_q and w_q must be int8, got {x_q.dtype}, {w_q.dtype}")
+    if a.shape != (o,) or b.shape != (o,) or a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"a and b must be float32 of shape ({o},)")
+    if out_dtype not in _MODES:
+        raise TypeError(f"out_dtype {out_dtype} is not one of {list(_MODES)}")
+    devs = {t.device for t in (x_q, w_q, a, b)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+
+
+def int8_conv_cuda(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
+                   out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Launch csrc/int8_conv.cu on CUDA tensors; raise on any refusal."""
+    global launches
+    _check(x_q, w_q, a, b, stride, out_dtype)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"the kernel takes cuda tensors, got {x_q.device}")
+    if not all(t.is_contiguous() for t in (x_q, w_q, a, b)):
+        raise ValueError("x_q, w_q, a and b must be contiguous (x_q NHWC)")
+    n, h, w, c = x_q.shape
+    o, kh = w_q.shape[:2]
+    ho, wo = out_size(h, kh, stride), out_size(w, kh, stride)
+    out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=x_q.device)
+    if out.numel() == 0:
+        return out
+    fn = _bind(_build.load("int8_conv"))
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    err = fn(x_q.data_ptr(), w_q.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+             n, h, w, c, o, kh, stride, _MODES[out_dtype], int(relu),
+             x_q.device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"int8_conv kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.int8_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int8_conv(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
+              out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """conv(int8, int8) -> int32 -> fused epilogue, NHWC in and out: the CUDA
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if x_q.device.type == "cuda":
+        return int8_conv_cuda(x_q, w_q, a, b, stride, relu, out_dtype)
+    if x_q.device.type == "cpu":
+        _check(x_q, w_q, a, b, stride, out_dtype)
+        return int8_conv_plain(x_q, w_q, a, b, stride, relu, out_dtype)
+    raise ValueError(f"no int8_conv for device {x_q.device}")
+
+
+def conv3x3_int8_fused(x_q, w9, a, b, relu: bool = True,
+                       out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """The signature of the JAX `conv3x3_int8_fused`: x_q (N, S, S, C) int8,
+    w9 (9, C, O) int8 (the HWIO kernel reshaped tap-major), a and b (O,)
+    f32 -> (N, S, S, O) in out_dtype, 3x3, stride 1, pad 1."""
+    n, s, s2, c = x_q.shape
+    if s != s2:
+        raise ValueError(f"square feature maps only, got {s}x{s2}")
+    o = w9.shape[-1]
+    w_q = w9.permute(2, 0, 1).reshape(o, 3, 3, c).contiguous()
+    return int8_conv(x_q.contiguous(), w_q, a.float().contiguous(), b.float().contiguous(),
+                     1, relu, out_dtype)
+
+
+def quantize_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clip(round_half_even(x / scale), -128, 127) as int8, in fp32."""
+    return torch.round(x.float() / scale).clamp(-128.0, 127.0).to(torch.int8)
+
+
+def host_scale(amax: float) -> torch.Tensor:
+    """amax / 127 in fp32 (the JAX package's `jnp.float32(amax) / 127.0`),
+    computed on the host: CUDA divides a tensor by a Python scalar as a
+    multiply by its reciprocal, which can differ in the last bit, and one
+    bit of a scale can flip a code."""
+    return torch.tensor(amax, dtype=torch.float32) / 127.0
+
+
+def chain_links(sub_paths: Sequence[str], amax_by_path: Dict[str, float], weight_table,
+                out_dtype: torch.dtype, exit_amax=None):
+    """(entry scale, [(w_q, a, b, out_dtype)] per link) of a deploy RepBlock
+    chain. Interior links requantize to the next link's scale, relu folded
+    into the clip: a = s_i * w_scale / s_next, b = bias / s_next. The last
+    link dequantizes (a = s_i * w_scale, b = bias, relu, `out_dtype`) or,
+    with `exit_amax`, requantizes to the consumer's scale. The constants are
+    computed on the host in fp32, as the JAX package computes them, and
+    moved to the weights' device, so that they do not depend on it."""
+    scales = [host_scale(amax_by_path[p]) for p in sub_paths]
+    links = []
+    for i, p in enumerate(sub_paths):
+        w_q, w_scale, bias = weight_table[p]
+        dev = w_q.device
+        w_scale, bias = w_scale.cpu(), bias.cpu()
+        if i + 1 < len(sub_paths) or exit_amax is not None:
+            s_next = scales[i + 1] if i + 1 < len(sub_paths) else host_scale(exit_amax)
+            a, b, dt = scales[i] * w_scale / s_next, bias / s_next, torch.int8
+        else:
+            a, b, dt = scales[i] * w_scale, bias, out_dtype
+        links.append((w_q, a.to(dev), b.to(dev), dt))
+    return scales[0].to(weight_table[sub_paths[0]][0].device), links
+
+
+def run_chain(x: torch.Tensor, entry_scale: torch.Tensor, links) -> torch.Tensor:
+    """Run chain_links' links on NHWC `x`: quantize at entry (an int8 `x` is
+    taken as codes at the entry scale), then each link with relu."""
+    q = x.contiguous() if x.dtype == torch.int8 else quantize_codes(x, entry_scale)
+    for w_q, a, b, dt in links:
+        q = int8_conv(q, w_q, a, b, 1, True, dt)
+    return q
+
+
+def chain_repblock_fused(x, sub_paths, amax_by_path, weight_table, out_dtype=None):
+    """Counterpart of the JAX `chain_repblock_pallas`: a deploy RepBlock
+    chain of 3x3 links, NHWC. Quantize once at entry (an int8 `x` is taken as
+    codes at the first link's scale), run each interior link int8 -> int8
+    with relu folded into the clip, and dequantize the last link with relu to
+    `out_dtype` (no exit handoff). `weight_table[p]` is (w_q (O, 3, 3, C)
+    int8, w_scale (O,) f32, bias (O,) f32)."""
+    out_dtype = out_dtype if out_dtype is not None else x.dtype
+    return run_chain(x, *chain_links(sub_paths, amax_by_path, weight_table, out_dtype))

@@ -4,6 +4,10 @@ Example:
   python -m yololp_tpu_torch.tools.infer --source img.jpg --conf-file yololps \
       --weights best_ckpt.msgpack --not-save-img
 
+True-int8 inference (calibrated convs in csrc/int8_conv.cu):
+  python -m yololp_tpu_torch.tools.infer --source img.jpg --conf-file yololps \
+      --int8 --calib-pt amax.json --conv-impl pallas --not-save-img
+
 Drawing annotated images is not ported yet, so the CLI writes label txts
 only and requires --not-save-img.
 """
@@ -39,6 +43,13 @@ def get_args_parser():
                         help="bf16 compute")
     parser.add_argument("--batch-size", type=int, default=1,
                         help=">1 enables the batched throughput path")
+    parser.add_argument("--int8", action="store_true",
+                        help="execute calibrated convs in int8 (csrc/int8_conv.cu)")
+    parser.add_argument("--conv-impl", default="conv", choices=["conv", "dots", "pallas"],
+                        help="int8 plan: 'pallas' runs RepBlock chains fused with a float "
+                             "exit; 'conv' and 'dots' (one plan) hand chain exits off in int8")
+    parser.add_argument("--calib-pt", type=str, default=None,
+                        help="calibration amax json (required with --int8)")
     return parser
 
 
@@ -47,6 +58,8 @@ def main(args=None):
     args = parser.parse_args(args)
     if not args.not_save_img:
         parser.error("drawing annotated images is not ported yet; pass --not-save-img")
+    if args.int8 and not args.calib_pt:
+        parser.error("--int8 requires --calib-pt")
 
     from yololp_tpu_torch.core.inferer import Inferer
 
@@ -56,6 +69,15 @@ def main(args=None):
                       conf_thres=args.conf_thres, iou_thres=args.iou_thres,
                       max_det=args.max_det, nms_selector=args.nms_selector,
                       device=args.device)
+    if args.int8:
+        from yololp_tpu_torch.quant.int8_infer import make_int8_infer_fn
+        from yololp_tpu_torch.quant.quantize import load_amax
+
+        inferer._run = make_int8_infer_fn(
+            inferer.model, inferer.variables, load_amax(args.calib_pt),
+            conf_thres=args.conf_thres, iou_thres=args.iou_thres,
+            max_det=args.max_det, candidate_selector=args.nms_selector,
+            conv_impl=args.conv_impl, device=args.device)
     save_dir = osp.join(args.project, args.name)
     if args.batch_size > 1:
         results = inferer.infer_batched(save_dir, batch_size=args.batch_size,
