@@ -42,7 +42,24 @@ toolkit. Phases, each of which raises on failure:
   8. int8 times: img/s at batch 32 beside phase 5's bf16, a profiler table
      of one int8 batch, and every distinct int8 conv launch of the main path
      timed alone (kernel, plain version, bound, and a cuDNN bf16 conv of the
-     same shape as a reference point).
+     same shape as a reference point);
+  9. the matmul kernel against its plain PyTorch version, int8 and bf16: the
+     matmul probe's three shapes, ragged M, K and N, and a conv9dots tap of
+     an 80x80, C = 128 map at N = 32; int8 equal, bf16 within
+     2 K 2**-24 (|a| @ |b|) elementwise;
+  10. the dots int8 main path: with phase 7's calibration,
+     `make_int8_infer_fn(conv_impl="dots")` and then "conv" as the inferer's
+     `_run`, `detect_batch` on the 32 frames, the launch counts of both
+     kernels read around each call and held to what the model's int8
+     geometries imply (a 3x3/s1 conv is 9 matmuls, a 1x1/s1 conv one, every
+     other conv one int8_conv launch); the two plans' detections equal bit
+     for bit; the dots route on a chain link's own entry codes equal to the
+     exact accumulator; img/s of both plans and a profiler table of one
+     dots batch;
+  11. times: every distinct matmul launch of one dots batch timed alone, and
+     the kernel at the probe's shapes (ms, rate, bound, plain version, and
+     torch.matmul / torch._int_mm as the library's time); then each ported
+     measurement tool's main() once at small step counts and batch 32.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -71,6 +88,7 @@ FP32_RTOL, FP32_ATOL_PX, FP32_ATOL_SCORE = 2e-3, 0.1, 2e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 op/s and
 # dense int8 tensor-core op/s
 HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
+BF16_OPS_S = 989e12  # dense bf16 tensor-core op/s
 
 # operations per (i, j) pair of the IoU bitmask: 2 max, 2 min, 2 sub, 2 clip,
 # 1 mul, 2 add, 1 sub, 1 div, 1 compare; plus 5 per box for its area
@@ -272,6 +290,55 @@ def phase_int8_kernels(cuda_conv, rng, dev):
         print(f"int8_conv kernel vs plain [{name}] x {tuple(x.shape)} w {tuple(w.shape)} "
               f"s{stride} -> {str(dt)[6:]}: equal, range {span}")
     return worst
+
+
+# the matmul probe's shapes (M, K, N) (tools/probe_mxu_int8.py)
+MM_PROBE = [(16384, 512, 512), (8192, 1024, 1024), (4096, 2048, 2048)]
+
+
+def matmul_cases():
+    """name -> (M, K, N): the probe's shapes, ragged ones (K not a multiple
+    of 16 bytes, N odd or above 64 by a little), and one conv9dots tap of an
+    80x80, C = O = 128 map at N = 32."""
+    cases = {f"probe_{m}x{k}x{n}": (m, k, n) for m, k, n in MM_PROBE}
+    cases.update({"ragged_1000x24x12": (1000, 24, 12), "ragged_4097x2048x277": (4097, 2048, 277),
+                  "ragged_333x37x65": (333, 37, 65),
+                  f"conv9dots_tap_N{BATCH}_80x80_C128": (BATCH * 80 * 80, 128, 128)})
+    return cases
+
+
+def matmul_operands(rng, m, k, n, dtype):
+    """(a (M, K), b (K, N)) on the host: int8 codes over [-128, 127], or
+    bf16 values ~N(0, 1)."""
+    if dtype == torch.int8:
+        return (torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)),
+                torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)))
+    return (torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).bfloat16(),
+            torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).bfloat16())
+
+
+def check_matmul(cuda_matmul, a, b, what):
+    """Kernel against plain on card tensors: int8 equal, bf16 within
+    2 K 2**-24 (|a| @ |b|) elementwise (both sum exact fp32 products in fp32,
+    in other orders). Returns max |kernel - plain|."""
+    got = cuda_matmul.matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    want = cuda_matmul.matmul_plain(a, b)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"mxu_matmul [{what}]: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    diff = (got.double() - want.double()).abs()
+    err = float(diff.max())
+    if a.dtype == torch.int8:
+        if not torch.equal(got, want):
+            raise AssertionError(f"mxu_matmul kernel != plain [{what}]: max |diff| {err}, "
+                                 f"{int((got != want).sum())} of {got.numel()} differ")
+        return err
+    bound = 2 * a.shape[1] * 2.0 ** -24 * (a.double().abs() @ b.double().abs())
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"mxu_matmul bf16 [{what}]: {int((diff > bound).sum())} of "
+                             f"{diff.numel()} beyond 2K 2^-24 (|a|@|b|), max |diff| {err}")
+    return err
 
 
 class LaunchLog:
@@ -484,13 +551,222 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
                            fp32_err_px=err_px, fp32_err_score=err_score, fp32_noise=noise, median_ms=float(np.median(ms)),
                            img_s=img_s, runs_ms=ms, profile=profile, kernel_profile_ms=kernel_dev_ms,
                            per_batch=tot, launches_timed=rows)
-    return launches, err, tot
+    return launches, err, tot, dict(inferer8=inferer8, amax=amax, conf=conf)
+
+
+def phase_matmul_kernels(cuda_matmul, rng, dev):
+    """9. Every matmul case in int8 and bf16; worst |kernel - plain| by type."""
+    worst = {torch.int8: 0.0, torch.bfloat16: 0.0}
+    for name, (m, k, n) in matmul_cases().items():
+        for dt in (torch.int8, torch.bfloat16):
+            a, b = (t.to(dev) for t in matmul_operands(rng, m, k, n, dt))
+            err = check_matmul(cuda_matmul, a, b, f"{name} {dt}")
+            worst[dt] = max(worst[dt], err)
+            held = "equal" if dt == torch.int8 else f"within 2K 2^-24 (|a|@|b|), max |diff| {err:.3g}"
+            print(f"mxu_matmul kernel vs plain [{name} {str(dt)[6:]}] ({m}, {k}) @ ({k}, {n}): {held}")
+    return worst
+
+
+def mm_bound(m, k, n, dtype):
+    """(bound ms, bound_by, ops, bytes) of one (M, K) @ (K, N): each input
+    byte read once, each output byte written once, 2 ops a multiply-add at
+    the type's tensor-core peak."""
+    es, peak = (1, INT8_OPS_S) if dtype == torch.int8 else (2, BF16_OPS_S)
+    nbytes = (m * k + k * n) * es + m * n * 4
+    ops = 2 * m * k * n
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b > t_o else "operations"), ops, nbytes
+
+
+def library_mm(a, b):
+    """The one PyTorch call that computes a @ b for these inputs, or None:
+    torch.matmul in bf16 (cuBLAS; its output is bf16, not fp32) and
+    torch._int_mm in int8, which takes M > 16 and K, N multiples of 8. A
+    yardstick only: the port never calls either."""
+    if a.dtype == torch.bfloat16:
+        return lambda: torch.matmul(a, b)
+    if a.shape[0] > 16 and a.shape[1] % 8 == 0 and b.shape[1] % 8 == 0:
+        return lambda: torch._int_mm(a, b)
+    return None
+
+
+def time_matmul(cuda_matmul, a, b, reps=10):
+    """(kernel ms, plain ms, library ms or None) of a @ b, CUDA events,
+    medians of 5 windows."""
+    for _ in range(3):
+        cuda_matmul.matmul(a, b)
+    ms = float(np.median(cuda_ms(lambda: cuda_matmul.matmul(a, b), reps)))
+    plain_ms = float(np.median(cuda_ms(lambda: cuda_matmul.matmul_plain(a, b), 1, 3)))
+    lib = library_mm(a, b)
+    lib_ms = None
+    if lib is not None:
+        lib()
+        lib_ms = float(np.median(cuda_ms(lib, reps)))
+    return ms, plain_ms, lib_ms
+
+
+def phase_dots_main(results, card, dev, batch, imgs, ctx):
+    """10. The dots plan of the int8 main path against the conv plan."""
+    import collections
+
+    from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
+    from yololp_tpu_torch.quant import int8_infer
+
+    inferer8, amax, conf = ctx["inferer8"], ctx["amax"], ctx["conf"]
+    kw = dict(conf_thres=conf, iou_thres=0.45, max_det=1000, device=dev)
+    plans = {}
+    for impl in ("dots", "conv"):
+        run = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, amax,
+                                            conv_impl=impl, **kw)
+        inferer8._run = run
+        inferer8.warmup()
+        log = LaunchLog(run.int8_model, int8_infer)
+        cuda_conv.launches = cuda_matmul.launches = cuda_nms.launches = 0
+        dets = inferer8.detect_batch(imgs)
+        torch.cuda.synchronize()
+        counts = (cuda_conv.launches, cuda_matmul.launches, cuda_nms.launches)
+        log.remove()
+        mm_shapes, n_conv = collections.Counter(), 0
+        for n, h, w, c, o, k, stride, _, _ in log.launches:
+            if impl == "dots" and stride == 1:
+                mm_shapes[(n * h * w, c, o)] += 9 if k == 3 else 1
+            else:
+                n_conv += 1
+        want = (n_conv, sum(mm_shapes.values()), 1)
+        if counts != want:
+            raise AssertionError(f"{impl} plan launched (int8_conv, mxu_matmul, greedy_nms) "
+                                 f"{counts}, its {len(log.launches)} int8 convs imply {want}")
+        if len(dets) != BATCH or min(len(d) for d in dets) == 0:
+            raise AssertionError(f"an image came back without detections on the {impl} plan")
+        for d in dets:
+            if d.ndim != 2 or d.shape[1] != 28 or not np.isfinite(d).all():
+                raise AssertionError(f"bad {impl} detections {d.shape}")
+        for _ in range(3):
+            run(batch)
+        ms = cuda_ms(lambda: run(batch), 2)
+        plans[impl] = dict(dets=dets, counts=counts, mm_shapes=mm_shapes, log=log, run=run,
+                           runs_ms=ms, median_ms=float(np.median(ms)),
+                           img_s=BATCH * 1e3 / float(np.median(ms)))
+        print(f"int8 main path, conv_impl {impl}: int8_conv launches {counts[0]}, mxu_matmul "
+              f"launches {counts[1]}, greedy_nms launches {counts[2]} (as the {len(log.launches)} "
+              f"int8 convs imply); detections per image {min(map(len, dets))}..{max(map(len, dets))}")
+
+    for i, (d, c) in enumerate(zip(plans["dots"]["dets"], plans["conv"]["dets"])):
+        if d.shape != c.shape or not np.array_equal(d, c):
+            raise AssertionError(f"image {i}: the dots plan's detections != the conv plan's")
+    print(f"dots plan detections == conv plan detections, bit for bit, on all {BATCH} images")
+
+    # the dots route on a chain link's own entry codes from the run
+    path = "backbone/ERBlock_3_rep"
+    dots = plans["dots"]
+    xq = dots["log"].chain_inputs[path]
+    blk = dots["run"].int8_model.get_submodule(path.replace("/", "."))
+    x_nhwc, w_q = xq.permute(0, 2, 3, 1).contiguous(), blk.plan[1][0][0]
+    acc = int8_infer._int8_conv(x_nhwc, w_q, 1, 1, "dots")
+    if xq.dtype != torch.int8 or not torch.equal(acc, cuda_conv.int8_conv_acc_plain(x_nhwc, w_q)):
+        raise AssertionError(f"dots route != exact accumulator on {path} link 0's entry codes")
+    print(f"dots route (9 mxu_matmul launches) == exact accumulator on {path} link 0's entry "
+          f"codes from the run {tuple(xq.shape)}")
+    for impl in ("dots", "conv"):
+        print(f"[{card}] end-to-end int8 ({impl} plan) batch {BATCH}: {plans[impl]['img_s']:.1f} "
+              f"img/s ({plans[impl]['median_ms']:.3f} ms per batch, median of 5 windows of 2, CUDA "
+              f"events); in this run bf16 {results['e2e_bf16']['img_s']:.1f}, int8 pallas plan "
+              f"{results['int8']['img_s']:.1f}")
+    results["dots"] = {impl: dict(counts=p["counts"], runs_ms=p["runs_ms"], median_ms=p["median_ms"],
+                                  img_s=p["img_s"]) for impl, p in plans.items()}
+    profile = profile_batch(lambda: dots["run"](batch), card, label="int8 dots-plan")
+    mm_dev_ms = sum(v for k, v in profile["by_name"].items() if "mxu_matmul_kernel" in k)
+    print(f"[{card}] mxu_matmul kernels in the profiled dots batch: {mm_dev_ms:.3f} ms of "
+          f"{profile['window_ms']:.3f} ms ({100 * mm_dev_ms / profile['window_ms']:.1f}%)")
+    results["dots"]["profile"] = profile
+    return dots["counts"][1], dots["mm_shapes"]
+
+
+def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
+    """11. The matmul launches of one dots batch and the probe's shapes,
+    timed alone; then each ported measurement tool once."""
+    import tempfile
+
+    from yololp_tpu_torch.ops import cuda_matmul
+    from yololp_tpu_torch.quant.quantize import save_amax
+    from yololp_tpu_torch.tools import (probe_latency, probe_mxu_int8, probe_pallas_conv,
+                                       profile_int8, profile_sections)
+    from yololp_tpu_torch.utils.profiler import model_flops
+
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops=0, bytes=0,
+               library_launches=0, launches=0)
+    rows = []
+    for (m, k, n), count in sorted(mm_shapes.items(), key=lambda kv: -kv[0][0] * kv[0][2]):
+        a, b = (t.to(dev) for t in matmul_operands(rng, m, k, n, torch.int8))
+        ms, plain_ms, lib_ms = time_matmul(cuda_matmul, a, b)
+        bound_ms, bound_by, ops, nbytes = mm_bound(m, k, n, torch.int8)
+        rows.append(dict(shape=[m, k, n], launches=count, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            tot[key] += count * v
+        tot["ops"] += count * ops
+        tot["bytes"] += count * nbytes
+        tot["launches"] += count
+        if lib_ms is not None:
+            tot["library_ms"] += count * lib_ms
+            tot["library_launches"] += count
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (torch._int_mm refuses the shape)"
+        print(f"[{card}] mxu_matmul int8 ({m}, {k}) @ ({k}, {n}): x{count}/batch (dots plan), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.1f}% of it), torch._int_mm {lib}")
+    tot["bound_by"] = "bytes" if tot["bytes"] / HBM_BYTES_S > tot["ops"] / INT8_OPS_S else "operations"
+    print(f"[{card}] mxu_matmul, all {tot['launches']} launches of one dots batch timed alone: "
+          f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms "
+          f"by {tot['bound_by']}, torch._int_mm {tot['library_ms']:.3f} ms over the "
+          f"{tot['library_launches']} launches it takes")
+
+    probe = []
+    for m, k, n in MM_PROBE:
+        for dt in (torch.bfloat16, torch.int8):
+            a, b = (t.to(dev) for t in matmul_operands(rng, m, k, n, dt))
+            ms, plain_ms, lib_ms = time_matmul(cuda_matmul, a, b, reps=20)
+            bound_ms, bound_by, ops, _ = mm_bound(m, k, n, dt)
+            probe.append(dict(shape=[m, k, n], dtype=str(dt)[6:], ms=ms, rate_t=ops / ms / 1e9,
+                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=lib_ms, library_rate_t=ops / lib_ms / 1e9))
+            lib = "torch.matmul (bf16 out)" if dt == torch.bfloat16 else "torch._int_mm"
+            print(f"[{card}] mxu_matmul {str(dt)[6:]} ({m}, {k}) @ ({k}, {n}): kernel {ms:.4f} ms "
+                  f"({ops / ms / 1e9:.1f} T/s), bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.3f} ms, {lib} {lib_ms:.4f} ms "
+                  f"({ops / lib_ms / 1e9:.1f} T/s)")
+    results["matmul"] = dict(dots_batch=tot, dots_launches_timed=rows, probe=probe)
+
+    # each ported measurement tool once, at small step counts and batch 32
+    x = torch.zeros(BATCH, 3, IMG, IMG, device=dev, dtype=torch.bfloat16)
+    flops = model_flops(torch.inference_mode()(model), x.contiguous(memory_format=torch.channels_last))
+    print(f"[{card}] model_flops, bf16 forward batch {BATCH}: {flops['flops'] / 1e9:.1f} GFLOP, "
+          f"peak memory {flops['peak_memory_bytes'] / 2 ** 20:.0f} MiB")
+    tools = {"model_flops": flops}
+    with tempfile.TemporaryDirectory() as tmp:
+        calib = os.path.join(tmp, "amax.json")
+        save_amax(amax, calib)
+        for name, fn, argv in (
+                ("probe_mxu_int8", probe_mxu_int8.main, ["--iters", "4"]),
+                ("probe_pallas_conv", probe_pallas_conv.main, ["--iters", "4", "--batch", str(BATCH)]),
+                ("profile_int8", profile_int8.main, ["--iters", "2", "--batch-size", str(BATCH),
+                                                     "--calib-pt", calib]),
+                ("probe_latency", probe_latency.main, ["--iters", "2", "--batches", f"1,{BATCH}",
+                                                       "--int8"]),
+                ("profile_sections", profile_sections.main, ["--iters", "2", "--batch-size",
+                                                             str(BATCH), "--calib-pt", calib])):
+            t0 = time.perf_counter()
+            print(f"[{card}] {name}.main({argv}):", flush=True)
+            tools[name] = fn(["--device", "cuda"] + argv)
+            print(f"[{card}] {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+    results["tools"] = tools
+    return tot
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -620,8 +896,14 @@ def main():
 
     # 6. int8 kernel vs plain; 7-8. the int8 main path and its times
     int8_err = phase_int8_kernels(cuda_conv, rng, dev)
-    int8_launches, run_err, tot = phase_int8_main(results, card, dev, cfg, weights, batch, imgs,
-                                                  rng, inferer32, cpu32)
+    int8_launches, run_err, tot, ctx8 = phase_int8_main(results, card, dev, cfg, weights, batch,
+                                                        imgs, rng, inferer32, cpu32)
+
+    # 9. matmul kernel vs plain; 10. the dots int8 main path; 11. times
+    from yololp_tpu_torch.ops import cuda_matmul
+    mm_err = phase_matmul_kernels(cuda_matmul, rng, dev)
+    mm_launches, mm_shapes = phase_dots_main(results, card, dev, batch, imgs, ctx8)
+    mm_tot = phase_matmul_times(results, card, dev, rng, mm_shapes, ctx8["amax"], inferer.model)
 
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
@@ -636,12 +918,25 @@ def main():
                 "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_S > tot["ops"] / INT8_OPS_S
                 else "operations",
-                "library_ms": None, "matches_plain": True}]
+                "library_ms": None, "matches_plain": True},
+               {"name": "mxu_matmul", "route": "cuda",
+                "source": "yololp_tpu_torch/csrc/mxu_matmul.cu",
+                "replaces": "tools/probe_mxu_int8.py:44",
+                "launches": mm_launches, "max_abs_err": max(mm_err.values()),
+                "max_abs_err_int8": mm_err[torch.int8],
+                "tolerance": "int8 exact; bf16 2 K 2^-24 (|a|@|b|)",
+                "ms": mm_tot["ms"], "plain_ms": mm_tot["plain_ms"], "bound_ms": mm_tot["bound_ms"],
+                "bound_by": mm_tot["bound_by"],
+                "library_ms": (mm_tot["library_ms"]
+                               if mm_tot["library_launches"] == mm_tot["launches"] else None),
+                "library_ms_where_defined": mm_tot["library_ms"],
+                "library_launches": mm_tot["library_launches"], "matches_plain": True}]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

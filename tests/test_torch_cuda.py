@@ -12,14 +12,18 @@ boxes, a 128-deep chain and K = 1024; the keep-mask must be equal, not
 close. int8_conv: every RepBlock chain geometry of yololps at 640 (N = 32),
 a 3x3/s2, 1x1 with O = 277 and 12, int8 without relu, extreme codes, the
 accumulator and a C that is not a multiple of 16; equal to the bit.
+mxu_matmul: the matmul probe's three shapes, ragged M, K and N, and a
+conv9dots tap at the main path's N = 32; int8 equal, bf16 within
+2 K 2**-24 (|a| @ |b|) elementwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import int8_case, int8_specs, mask_cases
-from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+from chip_smoke import (check_matmul, int8_case, int8_specs, mask_cases, matmul_cases,
+                        matmul_operands)
+from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
 
 CASES = ["clustered_B32_K512", "conf_gated_zero_tail", "exact_score_ties",
          "degenerate_boxes", "chain_128_deep", "clustered_K1024"]
@@ -84,3 +88,31 @@ def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         cuda_conv.int8_conv(x.permute(0, 2, 1, 3), w, a, a)
     with pytest.raises(TypeError, match="out_dtype"):
         cuda_conv.int8_conv(x, w, a, a, out_dtype=torch.float16)
+
+
+MM_CASES = list(matmul_cases())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("case", MM_CASES)
+def test_mxu_matmul_kernel_equals_plain(case, dtype, cuda_device):
+    a, b = (t.to(cuda_device) for t in matmul_operands(np.random.default_rng(3),
+                                                        *matmul_cases()[case], dtype))
+    before = cuda_matmul.launches
+    check_matmul(cuda_matmul, a, b, case)  # raises on a mismatch
+    assert cuda_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_mxu_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    a = torch.zeros(64, 32, dtype=torch.int8, device=cuda_device)
+    b = torch.zeros(32, 16, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        cuda_matmul.matmul(a.float(), b.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_matmul.matmul(a, b.t().contiguous().t())
+    with pytest.raises(ValueError, match="inner"):
+        cuda_matmul.matmul(a, b.t().contiguous())
+    assert torch.equal(cuda_matmul.matmul(a[:, :0], b[:0]),
+                       torch.zeros(64, 16, dtype=torch.int32, device=cuda_device))

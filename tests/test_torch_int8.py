@@ -4,7 +4,8 @@ whole int8 executor (quant/int8_infer.py) against yololp_tpu.
 On the CPU the wrappers run the kernel's plain version (exact int32
 accumulator, then the epilogue as a separate fp32 multiply and add). The JAX
 side runs `conv3x3_int8_fused` in Pallas interpret mode, as
-tests/test_pallas_conv.py does, and `_int8_conv` through XLA.
+tests/test_pallas_conv.py does, and `_int8_conv` through XLA (its conv, or
+with conv_impl "dots" its 9 shifted dots).
 
 Tolerances: int32 accumulators and int8 codes exactly equal. A float output
 within 1 fp32 ULP of the product acc * a (bounded by |y| + |b|), plus 1 bf16
@@ -25,7 +26,7 @@ import conftest  # noqa: F401  (forces the JAX cpu backend)
 from test_torch_quant import deploy_pair, frames, jax_amax
 from yololp_tpu.ops import pallas_conv as jpc
 from yololp_tpu.quant import int8_infer as jint8
-from yololp_tpu_torch.ops import cuda_conv
+from yololp_tpu_torch.ops import cuda_conv, cuda_matmul
 from yololp_tpu_torch.quant import int8_infer as tint8
 
 torch.set_num_threads(2)
@@ -186,7 +187,7 @@ def int8_setup():
             tint8.quantize_kernels_int8(tmodel.state_dict()), x)
 
 
-@pytest.mark.parametrize("conv_impl", ["conv", "pallas"])
+@pytest.mark.parametrize("conv_impl", ["conv", "pallas", "dots"])
 @pytest.mark.parametrize("stage_handoffs", [True, False])
 def test_int8_apply_matches_jax(int8_setup, conv_impl, stage_handoffs, monkeypatch):
     jmodel, fused, tmodel, amax, jtable, ttable, x = int8_setup
@@ -196,6 +197,13 @@ def test_int8_apply_matches_jax(int8_setup, conv_impl, stage_handoffs, monkeypat
     real = cuda_conv.run_chain
     monkeypatch.setattr(cuda_conv, "run_chain",
                         lambda x, s, lk: links.append(id(lk)) or real(x, s, lk))
+    # the dots plan runs its chains' links as matmuls (tint8._dots_chain)
+    real_dots = tint8._dots_chain
+    monkeypatch.setattr(tint8, "_dots_chain",
+                        lambda x, s, lk: links.append(id(lk)) or real_dots(x, s, lk))
+    matmuls = []
+    real_mm = cuda_matmul.matmul
+    monkeypatch.setattr(cuda_matmul, "matmul", lambda a, b: matmuls.append(1) or real_mm(a, b))
     before = cuda_conv.launches
     x_t = torch.from_numpy(x).permute(0, 3, 1, 2)
     model = tint8.build_int8_model(tmodel, amax, ttable, conv_impl=conv_impl,
@@ -203,6 +211,8 @@ def test_int8_apply_matches_jax(int8_setup, conv_impl, stage_handoffs, monkeypat
     with torch.inference_mode():
         got = model(x_t).numpy()
     assert cuda_conv.launches == before  # the CPU runs the plain version
+    # only the dots plan reaches the matmul (9 a 3x3/s1 conv, 1 a 1x1/s1)
+    assert bool(matmuls) == (conv_impl == "dots"), len(matmuls)
     # yololpn has 8 RepBlock chains; each must run as an int8 chain, by the
     # plan conv_impl selects (pallas: the fused plan, float exit)
     blocks = [m for m in model.modules() if isinstance(m, tint8.Int8RepBlock)]

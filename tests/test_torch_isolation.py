@@ -93,3 +93,28 @@ def test_int8_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     # the CPU is taken only when asked for, and then runs the plain int8 conv
     det, _, _ = make_int8_infer_fn(inf.model, inf.variables, amax, device="cpu")(batch)
     assert det.device.type == "cpu"
+
+
+@pytest.mark.parametrize("tool", ["probe_mxu_int8", "probe_pallas_conv", "profile_int8",
+                                  "probe_latency", "profile_sections"])
+def test_measurement_tools_raise_without_a_gpu(tool, monkeypatch):
+    import importlib
+
+    main = importlib.import_module(f"yololp_tpu_torch.tools.{tool}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--small"])  # --device defaults to cuda
+
+
+def test_matmul_and_dots_route_raise_without_a_gpu(monkeypatch):
+    from yololp_tpu_torch.ops import cuda_matmul
+    from yololp_tpu_torch.quant.int8_infer import conv3x3_as_dots
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = torch.zeros(4, 8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="cuda"):
+        cuda_matmul.matmul_cuda(a, a.t().contiguous())
+    # the CPU is taken only for CPU tensors, and then runs the plain version
+    x = torch.ones(1, 3, 3, 8, dtype=torch.int8)
+    acc = conv3x3_as_dots(x, torch.ones(3, 3, 8, 2, dtype=torch.int8))
+    assert acc.device.type == "cpu" and int(acc[0, 1, 1, 0]) == 72

@@ -1,5 +1,6 @@
 """True int8 inference: every calibrated conv runs int8 x int8 -> int32 in
-csrc/int8_conv.cu with its dequant or requant epilogue fused (mirrors
+csrc/int8_conv.cu with its dequant or requant epilogue fused, or, with
+conv_impl 'dots', as matmuls in csrc/mxu_matmul.cu (mirrors
 yololp_tpu/quant/int8_infer.py).
 
 Per-conv inputs are quantized with the calibrated per-tensor amax, kernels
@@ -22,10 +23,11 @@ import copy
 from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from yololp_tpu_torch.layers.blocks import ConvBNAct, RepBlock, RepVGGBlock
-from yololp_tpu_torch.ops import cuda_conv
+from yololp_tpu_torch.ops import cuda_conv, cuda_matmul
 from yololp_tpu_torch.ops.nms import non_max_suppression
 from yololp_tpu_torch.quant.quantize import (DEFAULT_SKIP_SUBSTRINGS, _image_tensor, _skip,
                                              check_model_device, model_device_dtype,
@@ -186,16 +188,60 @@ def chain_exit_handoffs(amax_by_path: Dict[str, float], weight_table: Dict[str, 
 # ---------------- execution ----------------
 
 
+def conv3x3_as_dots(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 same-padding conv(int8, int8) -> int32, NHWC, as 9
+    shifted (N*H*W, C) @ (C, O) matmuls in csrc/mxu_matmul.cu, the int32
+    partials summed by plain adds (yololp_tpu/quant/int8_infer.py:226).
+    x (N, H, W, C) int8, w_hwio (3, 3, C, O) int8. Equal to the conv: the
+    integer sums are exact in any order."""
+    n, h, w, c = x.shape
+    w9 = w_hwio.reshape(9, c, w_hwio.shape[-1])
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = xp[:, dy:dy + h, dx:dx + w, :].contiguous().reshape(n * h * w, c)
+            y = cuda_matmul.matmul(tap, w9[dy * 3 + dx].contiguous())
+            acc = y if acc is None else acc + y
+    return acc.reshape(n, h, w, -1)
+
+
 def _int8_conv(a_q, w_q, stride: int, padding: int, conv_impl: str = "conv") -> torch.Tensor:
-    """conv(int8, int8) -> int32 accumulator, NHWC: the kernel's accumulator
-    mode on the card. Every conv_impl takes the same kernel; the accumulator
-    does not depend on the order of the integer sums."""
+    """conv(int8, int8) -> int32 accumulator, NHWC, w_q (O, KH, KW, C).
+    conv_impl 'dots' takes 3x3/s1/p1 through `conv3x3_as_dots` and 1x1/s1
+    through one matmul (yololp_tpu/quant/int8_infer.py:248-264); every other
+    geometry, and the other conv_impls, take int8_conv.cu's accumulator mode.
+    The accumulator does not depend on the route: integer sums are exact."""
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl {conv_impl!r} is not one of {CONV_IMPLS}")
-    if padding != w_q.shape[1] // 2:
+    o, kh = w_q.shape[:2]
+    if padding != kh // 2:
         raise ValueError(f"padding {padding}: the kernel pads k // 2")
-    zeros = torch.zeros(w_q.shape[0], dtype=torch.float32, device=w_q.device)
+    if conv_impl == "dots" and stride == 1:
+        if kh == 3:
+            return conv3x3_as_dots(a_q, w_q.permute(1, 2, 3, 0))
+        n, h, w, c = a_q.shape
+        y = cuda_matmul.matmul(a_q.reshape(n * h * w, c), w_q.reshape(o, c).t().contiguous())
+        return y.reshape(n, h, w, o)
+    zeros = torch.zeros(o, dtype=torch.float32, device=w_q.device)
     return cuda_conv.int8_conv(a_q, w_q, zeros, zeros, stride, False, torch.int32)
+
+
+def _dots_chain(x: torch.Tensor, entry_scale: torch.Tensor, links) -> torch.Tensor:
+    """cuda_conv.run_chain with each link's conv as matmuls: the int32
+    accumulator by `conv3x3_as_dots`, then the kernel's epilogue in plain
+    PyTorch (cuda_conv.epilogue_plain, equal to the fused one bit for bit)."""
+    q = x.contiguous() if x.dtype == torch.int8 else cuda_conv.quantize_codes(x, entry_scale)
+    for w_q, a, b, dt in links:
+        q = cuda_conv.epilogue_plain(_int8_conv(q, w_q, 1, 1, "dots"), a, b, True, dt)
+    return q
+
+
+def _run_links(x, entry_scale, links, conv_impl: str):
+    """A chain's links on NHWC `x`, by the route conv_impl names."""
+    if conv_impl == "dots":
+        return _dots_chain(x, entry_scale, links)
+    return cuda_conv.run_chain(x, entry_scale, links)
 
 
 def _chain_repblock(x, sub_paths, amax_by_path, weight_table, out_dtype=None,
@@ -208,8 +254,8 @@ def _chain_repblock(x, sub_paths, amax_by_path, weight_table, out_dtype=None,
     if conv_impl not in CONV_IMPLS:
         raise ValueError(f"conv_impl {conv_impl!r} is not one of {CONV_IMPLS}")
     out_dtype = out_dtype if out_dtype is not None else x.dtype
-    return cuda_conv.run_chain(x, *cuda_conv.chain_links(sub_paths, amax_by_path, weight_table,
-                                                         out_dtype, exit_amax))
+    return _run_links(x, *cuda_conv.chain_links(sub_paths, amax_by_path, weight_table,
+                                                out_dtype, exit_amax), conv_impl)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -227,10 +273,12 @@ class Int8Conv2d(nn.Module):
     """A calibrated conv in int8: quantize the input (unless it arrives as
     int8 codes at this conv's scale), run the kernel, and write either int8
     codes at the consumer's scale (a handoff, relu folded into the clip) or
-    the dequantized float output (the module's activation follows)."""
+    the dequantized float output (the module's activation follows). With
+    conv_impl 'dots' the accumulator comes from `_int8_conv(..., 'dots')`
+    and the same epilogue runs in plain PyTorch."""
 
     def __init__(self, conv: nn.Conv2d, amax: float, entry: Tuple, model_dtype,
-                 handoff_amax=None):
+                 handoff_amax=None, conv_impl: str = "conv"):
         super().__init__()
         kh, kw = conv.kernel_size
         if (conv.groups != 1 or kh != kw or kh not in (1, 3) or conv.dilation != (1, 1)
@@ -243,6 +291,7 @@ class Int8Conv2d(nn.Module):
         dev = w_q.device
         self.stride = conv.stride[0]
         self.model_dtype = model_dtype
+        self.conv_impl = conv_impl
         self.handoff = handoff_amax is not None
         # epilogue constants on the host in fp32 (cuda_conv.host_scale)
         x_scale, w_scale, bias = cuda_conv.host_scale(amax), w_scale.cpu(), bias.cpu()
@@ -265,8 +314,12 @@ class Int8Conv2d(nn.Module):
 
     def forward(self, x):
         a_q = x if x.dtype == torch.int8 else cuda_conv.quantize_codes(x, self.x_scale)
-        y = cuda_conv.int8_conv(_nhwc(a_q), self.w_q, self.a, self.b, self.stride,
-                                self.handoff, self.out_dtype(x))
+        if self.conv_impl == "dots":
+            acc = _int8_conv(_nhwc(a_q), self.w_q, self.stride, self.w_q.shape[1] // 2, "dots")
+            y = cuda_conv.epilogue_plain(acc, self.a, self.b, self.handoff, self.out_dtype(x))
+        else:
+            y = cuda_conv.int8_conv(_nhwc(a_q), self.w_q, self.a, self.b, self.stride,
+                                    self.handoff, self.out_dtype(x))
         return _nchw(y)
 
 
@@ -285,8 +338,9 @@ class Int8Handoff(nn.Module):
 class Int8RepBlock(nn.Module):
     """A deploy RepBlock of RepVGG links run as one int8 chain. With
     conv_impl 'pallas' on a square map it takes the fused plan
-    (`chain_repblock_fused`, float exit); otherwise `_chain_repblock`, with
-    the chain-exit handoff when the plan has one."""
+    (`chain_repblock_fused`, float exit); otherwise `_chain_repblock`'s plan,
+    with the chain-exit handoff when the plan has one, its links as matmuls
+    with conv_impl 'dots'."""
 
     def __init__(self, sub_paths, amax_by_path, weight_table, model_dtype, conv_impl,
                  exit_amax=None):
@@ -306,7 +360,7 @@ class Int8RepBlock(nn.Module):
         return self.fused if self.conv_impl == "pallas" and square else self.plan
 
     def forward(self, x):
-        return _nchw(cuda_conv.run_chain(_nhwc(x), *self.links_for(x)))
+        return _nchw(_run_links(_nhwc(x), *self.links_for(x), self.conv_impl))
 
 
 def _is_deploy_repvgg_chain(m: nn.Module) -> bool:
@@ -362,7 +416,8 @@ def build_int8_model(model: nn.Module, amax_by_path: Dict[str, float],
             continue
         cons = handoffs.get(path)
         conv = Int8Conv2d(m, float(amax_by_path[path]), table[path], model_dtype,
-                          handoff_amax=float(amax_by_path[cons]) if cons is not None else None)
+                          handoff_amax=float(amax_by_path[cons]) if cons is not None else None,
+                          conv_impl=conv_impl)
         parent_name = name.rpartition(".")[0]
         parent = out.get_submodule(parent_name)
         if cons is None:
