@@ -24,7 +24,9 @@ toolkit. Phases, each of which raises on failure:
      every RepBlock chain geometry of yololps at 640 with N = 32 (int8 out
      with relu, then bf16 and fp32 exits), a 3x3/s2, 1x1 with O = 277 and 12,
      an int8 out without relu, entry codes at -128 and 127, the accumulator
-     mode and a C that takes the byte-gather path;
+     mode, C = 32 (K = 288, not a multiple of the 128-byte stage) with M not
+     a multiple of the 128-row tile, a 3x3/s2 fp32 exit without relu at
+     O = 12, and a C that takes the byte-gather path;
   7. the int8 main path: calibrate (max) on two batches of the seeded frames
      on the card, write and reload the amax json, install
      `make_int8_infer_fn(conv_impl="pallas")` as the inferer's `_run` (as the
@@ -42,10 +44,12 @@ toolkit. Phases, each of which raises on failure:
   8. int8 times: img/s at batch 32 beside phase 5's bf16, a profiler table
      of one int8 batch, and every distinct int8 conv launch of the main path
      timed alone (kernel, plain version, bound, and a cuDNN bf16 conv of the
-     same shape as a reference point);
+     same shape as a reference point), with each launch's tile, stage count
+     and shared memory and the kernel's ptxas registers;
   9. the matmul kernel against its plain PyTorch version, int8 and bf16: the
-     matmul probe's three shapes, ragged M, K and N, and a conv9dots tap of
-     an 80x80, C = 128 map at N = 32; int8 equal, bf16 within
+     matmul probe's three shapes, ragged M, K and N, K = 288, a conv9dots tap
+     of an 80x80, C = 128 map at N = 32, and `matmul_nt` on the strided
+     (O, C) view of one tap of (O, 3, 3, C) weights; int8 equal, bf16 within
      2 K 2**-24 (|a| @ |b|) elementwise;
   10. the dots int8 main path: with phase 7's calibration,
      `make_int8_infer_fn(conv_impl="dots")` and then "conv" as the inferer's
@@ -56,10 +60,12 @@ toolkit. Phases, each of which raises on failure:
      for bit; the dots route on a chain link's own entry codes equal to the
      exact accumulator; img/s of both plans and a profiler table of one
      dots batch;
-  11. times: every distinct matmul launch of one dots batch timed alone, and
-     the kernel at the probe's shapes (ms, rate, bound, plain version, and
-     torch.matmul / torch._int_mm as the library's time); then each ported
-     measurement tool's main() once at small step counts and batch 32.
+  11. times: every distinct matmul launch of one dots batch timed alone (on
+     the strided tap views the dots plan passes), and the kernel at the
+     probe's shapes (ms, rate, bound, plain version, and torch.matmul /
+     torch._int_mm as the library's time), with tiles, stages, shared memory
+     and ptxas registers; then each ported measurement tool's main() once at
+     small step counts and batch 32.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -244,6 +250,8 @@ def int8_specs():
     specs["int8_no_relu"] = (BATCH, 40, 128, 128, 3, 1, False, torch.int8, False)
     specs["extreme_codes"] = (4, 40, 128, 128, 3, 1, True, torch.int8, True)
     specs["accumulator_int32"] = (4, 40, 128, 64, 3, 1, False, torch.int32, True)
+    specs["C32_K288_M4107_O48"] = (3, 37, 32, 48, 3, 1, True, torch.int8, True)
+    specs["3x3_s2_C32_O12_fp32_no_relu"] = (2, 37, 32, 12, 3, 2, False, torch.float32, False)
     specs["C24_byte_gather"] = (4, 33, 24, 40, 3, 2, True, torch.int8, False)
     return specs
 
@@ -297,32 +305,52 @@ MM_PROBE = [(16384, 512, 512), (8192, 1024, 1024), (4096, 2048, 2048)]
 
 
 def matmul_cases():
-    """name -> (M, K, N): the probe's shapes, ragged ones (K not a multiple
-    of 16 bytes, N odd or above 64 by a little), and one conv9dots tap of an
-    80x80, C = O = 128 map at N = 32."""
-    cases = {f"probe_{m}x{k}x{n}": (m, k, n) for m, k, n in MM_PROBE}
-    cases.update({"ragged_1000x24x12": (1000, 24, 12), "ragged_4097x2048x277": (4097, 2048, 277),
-                  "ragged_333x37x65": (333, 37, 65),
-                  f"conv9dots_tap_N{BATCH}_80x80_C128": (BATCH * 80 * 80, 128, 128)})
+    """name -> (M, K, N, layout): the probe's shapes, ragged ones (K not a
+    multiple of 16 bytes, N odd or above 64 by a little, M not a multiple of
+    the 128-row tile), K = 288 (a C = 32 conv's), one conv9dots tap of an
+    80x80, C = O = 128 map at N = 32 (layout "kn": `matmul(a, b)` with b
+    (K, N)), and the same tap as the dots plan passes it (layout "tap":
+    `matmul_nt(a, w[:, 1, 2, :])` of (N, 3, 3, K) weights, rows 9K apart)."""
+    cases = {f"probe_{m}x{k}x{n}": (m, k, n, "kn") for m, k, n in MM_PROBE}
+    cases.update({"ragged_1000x24x12": (1000, 24, 12, "kn"),
+                  "ragged_4097x2048x277": (4097, 2048, 277, "kn"),
+                  "ragged_333x37x65": (333, 37, 65, "kn"),
+                  "K288_4097x288x64": (4097, 288, 64, "kn"),
+                  f"conv9dots_tap_N{BATCH}_80x80_C128": (BATCH * 80 * 80, 128, 128, "kn"),
+                  f"strided_tap_view_N{BATCH}_80x80_C128": (BATCH * 80 * 80, 128, 128, "tap"),
+                  "strided_tap_view_O12_C64": (5000, 64, 12, "tap")})
     return cases
 
 
-def matmul_operands(rng, m, k, n, dtype):
-    """(a (M, K), b (K, N)) on the host: int8 codes over [-128, 127], or
-    bf16 values ~N(0, 1)."""
+# layout -> the shape of the tensor b is (a view of): "kn" b (K, N) for
+# `matmul`; "nt" b_t (N, K) and "tap" one tap's (N, K) view of (N, 3, 3, K)
+# weights, for `matmul_nt`
+_B_SHAPES = {"kn": lambda k, n: (k, n), "nt": lambda k, n: (n, k), "tap": lambda k, n: (n, 3, 3, k)}
+
+
+def matmul_operands(rng, m, k, n, dtype, layout="kn", dev="cpu"):
+    """(a (M, K), b) on `dev`: b (K, N), (N, K) for layout "nt", or for
+    layout "tap" the strided (N, K) view of one tap of (N, 3, 3, K) weights
+    (sliced on `dev`: a copy of a strided view would be contiguous). int8
+    codes over [-128, 127], or bf16 values ~N(0, 1)."""
     if dtype == torch.int8:
-        return (torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)),
-                torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)))
-    return (torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).bfloat16(),
-            torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).bfloat16())
+        a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
+        b = torch.from_numpy(rng.integers(-128, 128, _B_SHAPES[layout](k, n)).astype(np.int8))
+    else:
+        a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).bfloat16()
+        b = torch.from_numpy(rng.standard_normal(_B_SHAPES[layout](k, n), dtype=np.float32)).bfloat16()
+    a, b = a.to(dev), b.to(dev)
+    return a, (b[:, 1, 2, :] if layout == "tap" else b)
 
 
-def check_matmul(cuda_matmul, a, b, what):
+def check_matmul(cuda_matmul, a, b, what, nt=False):
     """Kernel against plain on card tensors: int8 equal, bf16 within
     2 K 2**-24 (|a| @ |b|) elementwise (both sum exact fp32 products in fp32,
-    in other orders). Returns max |kernel - plain|."""
-    got = cuda_matmul.matmul_cuda(a, b)
+    in other orders). `b` is (K, N) for `matmul`, or with `nt` a (N, K)
+    view for `matmul_nt`. Returns max |kernel - plain|."""
+    got = cuda_matmul.matmul_nt_cuda(a, b) if nt else cuda_matmul.matmul_cuda(a, b)
     torch.cuda.synchronize()
+    b = b.t() if nt else b
     want = cuda_matmul.matmul_plain(a, b)
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"mxu_matmul [{what}]: {tuple(got.shape)} {got.dtype} vs "
@@ -339,6 +367,22 @@ def check_matmul(cuda_matmul, a, b, what):
         raise AssertionError(f"mxu_matmul bf16 [{what}]: {int((diff > bound).sum())} of "
                              f"{diff.numel()} beyond 2K 2^-24 (|a|@|b|), max |diff| {err}")
     return err
+
+
+def kernel_report(name, plans):
+    """Print each launch shape's tile, stage count and dynamic shared
+    memory, and the ptxas registers, static shared memory and spills of
+    every instance of csrc/<name>.cu; return both."""
+    from yololp_tpu_torch.ops import _build
+
+    for label, p in plans.items():
+        print(f"  {name} {label}: tile {p['tile'][0]}x{p['tile'][1]}, {p['stages']} stages, "
+              f"{p['smem_bytes']} B dynamic shared memory")
+    usage = _build.ptxas_usage(name)
+    for u in usage:
+        print(f"  ptxas {u['entry']}: {u['registers']} registers, {u['smem_bytes']} B static "
+              f"shared memory, {u['spill_bytes']} B spill stores")
+    return dict(plans=plans, ptxas=usage)
 
 
 class LaunchLog:
@@ -392,7 +436,8 @@ def time_int8_launches(cuda_conv, counts, rng, dev, card):
     int8 function on CUDA). Returns per-batch totals and the rows."""
     import torch.nn.functional as F
 
-    rows, tot = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0, ops=0, bytes=0)
+    rows, plans = [], {}
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0, ops=0, bytes=0)
     for (n, h, w, c, o, k, stride, relu, dt), count in sorted(counts.items(), key=lambda kv: -kv[0][1]):
         x = torch.from_numpy(rng.integers(-128, 128, (n, h, w, c)).astype(np.int8)).to(dev)
         wq = torch.from_numpy(rng.integers(-128, 128, (o, k, k, c)).astype(np.int8)).to(dev)
@@ -411,6 +456,7 @@ def time_int8_launches(cuda_conv, counts, rng, dev, card):
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    cudnn_bf16_ms=ref_ms)
         rows.append(row)
+        plans[f"O={o} {row['out']}"] = cuda_conv.plan(o, dt)
         for key in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms"):
             tot[key] += count * row[key]
         tot["ops"] += count * ops
@@ -418,6 +464,8 @@ def time_int8_launches(cuda_conv, counts, rng, dev, card):
         print(f"[{card}] int8_conv N{n} {h}x{w} C{c}->O{o} k{k} s{stride} {row['out']}: "
               f"x{count}/batch, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
               f"by {bound_by} ({100 * bound_ms / ms:.1f}% of it), cuDNN bf16 conv (reference) {ref_ms:.4f} ms")
+    print(f"[{card}] int8_conv tiles:")
+    tot["kernel"] = kernel_report("int8_conv", plans)
     return tot, rows
 
 
@@ -557,13 +605,15 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
 def phase_matmul_kernels(cuda_matmul, rng, dev):
     """9. Every matmul case in int8 and bf16; worst |kernel - plain| by type."""
     worst = {torch.int8: 0.0, torch.bfloat16: 0.0}
-    for name, (m, k, n) in matmul_cases().items():
+    for name, (m, k, n, layout) in matmul_cases().items():
         for dt in (torch.int8, torch.bfloat16):
-            a, b = (t.to(dev) for t in matmul_operands(rng, m, k, n, dt))
-            err = check_matmul(cuda_matmul, a, b, f"{name} {dt}")
+            a, b = matmul_operands(rng, m, k, n, dt, layout, dev)
+            err = check_matmul(cuda_matmul, a, b, f"{name} {dt}", nt=layout != "kn")
             worst[dt] = max(worst[dt], err)
             held = "equal" if dt == torch.int8 else f"within 2K 2^-24 (|a|@|b|), max |diff| {err:.3g}"
-            print(f"mxu_matmul kernel vs plain [{name} {str(dt)[6:]}] ({m}, {k}) @ ({k}, {n}): {held}")
+            what = (f"({m}, {k}) @ ({k}, {n})" if layout == "kn" else
+                    f"({m}, {k}) @ ({n}, {k}) view, row stride {b.stride(0)}, .T")
+            print(f"mxu_matmul kernel vs plain [{name} {str(dt)[6:]}] {what}: {held}")
     return worst
 
 
@@ -590,14 +640,16 @@ def library_mm(a, b):
     return None
 
 
-def time_matmul(cuda_matmul, a, b, reps=10):
-    """(kernel ms, plain ms, library ms or None) of a @ b, CUDA events,
-    medians of 5 windows."""
+def time_matmul(cuda_matmul, a, b, reps=10, nt=False):
+    """(kernel ms, plain ms, library ms or None) of a @ b (with `nt`,
+    a @ b.T by matmul_nt), CUDA events, medians of 5 windows."""
+    mm = cuda_matmul.matmul_nt if nt else cuda_matmul.matmul
+    plain = cuda_matmul.matmul_nt_plain if nt else cuda_matmul.matmul_plain
     for _ in range(3):
-        cuda_matmul.matmul(a, b)
-    ms = float(np.median(cuda_ms(lambda: cuda_matmul.matmul(a, b), reps)))
-    plain_ms = float(np.median(cuda_ms(lambda: cuda_matmul.matmul_plain(a, b), 1, 3)))
-    lib = library_mm(a, b)
+        mm(a, b)
+    ms = float(np.median(cuda_ms(lambda: mm(a, b), reps)))
+    plain_ms = float(np.median(cuda_ms(lambda: plain(a, b), 1, 3)))
+    lib = library_mm(a, b.t().contiguous() if nt else b)
     lib_ms = None
     if lib is not None:
         lib()
@@ -629,7 +681,7 @@ def phase_dots_main(results, card, dev, batch, imgs, ctx):
         mm_shapes, n_conv = collections.Counter(), 0
         for n, h, w, c, o, k, stride, _, _ in log.launches:
             if impl == "dots" and stride == 1:
-                mm_shapes[(n * h * w, c, o)] += 9 if k == 3 else 1
+                mm_shapes[(n * h * w, c, o, k)] += 9 if k == 3 else 1
             else:
                 n_conv += 1
         want = (n_conv, sum(mm_shapes.values()), 1)
@@ -695,13 +747,17 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
 
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, ops=0, bytes=0,
                library_launches=0, launches=0)
-    rows = []
-    for (m, k, n), count in sorted(mm_shapes.items(), key=lambda kv: -kv[0][0] * kv[0][2]):
-        a, b = (t.to(dev) for t in matmul_operands(rng, m, k, n, torch.int8))
-        ms, plain_ms, lib_ms = time_matmul(cuda_matmul, a, b)
+    rows, plans = [], {}
+    for (m, k, n, kh), count in sorted(mm_shapes.items(), key=lambda kv: -kv[0][0] * kv[0][2]):
+        # as the dots plan passes them: a 3x3 tap's strided weight view, a
+        # 1x1's contiguous (O, C) weights
+        a, b = matmul_operands(rng, m, k, n, torch.int8, "tap" if kh == 3 else "nt", dev)
+        ms, plain_ms, lib_ms = time_matmul(cuda_matmul, a, b, nt=True)
         bound_ms, bound_by, ops, nbytes = mm_bound(m, k, n, torch.int8)
-        rows.append(dict(shape=[m, k, n], launches=count, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms))
+        plans[f"N={n}"] = cuda_matmul.plan(n)
+        rows.append(dict(shape=[m, k, n], kernel_size=kh, launches=count, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms))
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
             tot[key] += count * v
         tot["ops"] += count * ops
@@ -711,7 +767,7 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
             tot["library_ms"] += count * lib_ms
             tot["library_launches"] += count
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none (torch._int_mm refuses the shape)"
-        print(f"[{card}] mxu_matmul int8 ({m}, {k}) @ ({k}, {n}): x{count}/batch (dots plan), kernel "
+        print(f"[{card}] mxu_matmul int8 ({m}, {k}) @ ({k}, {n}) ({kh}x{kh} conv): x{count}/batch (dots plan), kernel "
               f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by} "
               f"({100 * bound_ms / ms:.1f}% of it), torch._int_mm {lib}")
     tot["bound_by"] = "bytes" if tot["bytes"] / HBM_BYTES_S > tot["ops"] / INT8_OPS_S else "operations"
@@ -723,7 +779,7 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
     probe = []
     for m, k, n in MM_PROBE:
         for dt in (torch.bfloat16, torch.int8):
-            a, b = (t.to(dev) for t in matmul_operands(rng, m, k, n, dt))
+            a, b = matmul_operands(rng, m, k, n, dt, dev=dev)
             ms, plain_ms, lib_ms = time_matmul(cuda_matmul, a, b, reps=20)
             bound_ms, bound_by, ops, _ = mm_bound(m, k, n, dt)
             probe.append(dict(shape=[m, k, n], dtype=str(dt)[6:], ms=ms, rate_t=ops / ms / 1e9,
@@ -734,7 +790,12 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
                   f"({ops / ms / 1e9:.1f} T/s), bound {bound_ms:.4f} ms by {bound_by} "
                   f"({100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.3f} ms, {lib} {lib_ms:.4f} ms "
                   f"({ops / lib_ms / 1e9:.1f} T/s)")
-    results["matmul"] = dict(dots_batch=tot, dots_launches_timed=rows, probe=probe)
+    for m, k, n in MM_PROBE:
+        plans[f"N={n}"] = cuda_matmul.plan(n)
+    print(f"[{card}] mxu_matmul tiles:")
+    report = kernel_report("mxu_matmul", plans)
+    results["matmul"] = dict(dots_batch=tot, dots_launches_timed=rows, probe=probe,
+                             kernel=report)
 
     # each ported measurement tool once, at small step counts and batch 32
     x = torch.zeros(BATCH, 3, IMG, IMG, device=dev, dtype=torch.bfloat16)
@@ -789,8 +850,11 @@ def main():
     _build.build_all()
     results["build_s"] = time.perf_counter() - t0
     print(f"built {_build.sources()} in {results['build_s']:.1f} s")
-    for name, report in _build.PTXAS_REPORT.items():
-        print(f"ptxas [{name}]: " + " | ".join(l for l in report.splitlines() if "Used" in l))
+    for name in _build.PTXAS_REPORT:
+        regs = [u["registers"] for u in _build.ptxas_usage(name)]
+        spills = sum(u["spill_bytes"] for u in _build.ptxas_usage(name))
+        print(f"ptxas [{name}]: {len(regs)} kernel instances, {min(regs)}..{max(regs)} registers, "
+              f"{spills} B spill stores (per instance: phases 8 and 11)")
 
     # 3. kernel vs plain
     rng = np.random.default_rng(SEED)

@@ -11,10 +11,12 @@ path's B = 32, K = 512, a conf-gated zero tail, exact score ties, degenerate
 boxes, a 128-deep chain and K = 1024; the keep-mask must be equal, not
 close. int8_conv: every RepBlock chain geometry of yololps at 640 (N = 32),
 a 3x3/s2, 1x1 with O = 277 and 12, int8 without relu, extreme codes, the
-accumulator and a C that is not a multiple of 16; equal to the bit.
-mxu_matmul: the matmul probe's three shapes, ragged M, K and N, and a
-conv9dots tap at the main path's N = 32; int8 equal, bf16 within
-2 K 2**-24 (|a| @ |b|) elementwise.
+accumulator, C = 32 (K = 288) with M not a multiple of 128, a 3x3/s2 fp32
+exit at O = 12 and a C that is not a multiple of 16; equal to the bit.
+mxu_matmul: the matmul probe's three shapes, ragged M, K and N, K = 288, a
+conv9dots tap at the main path's N = 32, and `matmul_nt` on a strided tap
+view of (O, 3, 3, C) weights; int8 equal, bf16 within 2 K 2**-24
+(|a| @ |b|) elementwise.
 """
 
 import numpy as np
@@ -97,10 +99,10 @@ MM_CASES = list(matmul_cases())
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
 @pytest.mark.parametrize("case", MM_CASES)
 def test_mxu_matmul_kernel_equals_plain(case, dtype, cuda_device):
-    a, b = (t.to(cuda_device) for t in matmul_operands(np.random.default_rng(3),
-                                                        *matmul_cases()[case], dtype))
+    m, k, n, layout = matmul_cases()[case]
+    a, b = matmul_operands(np.random.default_rng(3), m, k, n, dtype, layout, cuda_device)
     before = cuda_matmul.launches
-    check_matmul(cuda_matmul, a, b, case)  # raises on a mismatch
+    check_matmul(cuda_matmul, a, b, case, nt=layout != "kn")  # raises on a mismatch
     assert cuda_matmul.launches == before + 1
 
 
@@ -116,3 +118,10 @@ def test_mxu_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         cuda_matmul.matmul(a, b.t().contiguous())
     assert torch.equal(cuda_matmul.matmul(a[:, :0], b[:0]),
                        torch.zeros(64, 16, dtype=torch.int32, device=cuda_device))
+    # matmul_nt takes b_t's rows as they are: they must start on 16 bytes
+    w = torch.zeros(16, 3, 3, 40, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="16 bytes"):
+        cuda_matmul.matmul_nt(torch.zeros(64, 48, dtype=torch.int8, device=cuda_device)[:, :40],
+                              w[:, 1, 1, :])  # rows 360 bytes apart
+    with pytest.raises(ValueError, match="16 bytes"):
+        cuda_matmul.matmul_nt(a, b.t())

@@ -202,8 +202,8 @@ def test_int8_apply_matches_jax(int8_setup, conv_impl, stage_handoffs, monkeypat
     monkeypatch.setattr(tint8, "_dots_chain",
                         lambda x, s, lk: links.append(id(lk)) or real_dots(x, s, lk))
     matmuls = []
-    real_mm = cuda_matmul.matmul
-    monkeypatch.setattr(cuda_matmul, "matmul", lambda a, b: matmuls.append(1) or real_mm(a, b))
+    real_mm = cuda_matmul.matmul_nt
+    monkeypatch.setattr(cuda_matmul, "matmul_nt", lambda a, b: matmuls.append(1) or real_mm(a, b))
     before = cuda_conv.launches
     x_t = torch.from_numpy(x).permute(0, 3, 1, 2)
     model = tint8.build_int8_model(tmodel, amax, ttable, conv_impl=conv_impl,

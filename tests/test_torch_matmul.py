@@ -144,3 +144,55 @@ def test_probe_conv9dots_matches_jax(jprobe):
     f = (rng.standard_normal((4, 4)) * 100).astype(np.float32)
     np.testing.assert_array_equal(tprobe._chain_f(to_t(f)).float().numpy(),
                                   np.asarray(jprobe._chain_f(jnp.asarray(f)), np.float32))
+
+
+@pytest.mark.parametrize("tap", range(9))
+def test_matmul_nt_plain_on_a_strided_tap_equals_the_tap_matmul(tap):
+    """The dots plan's K-major tap view w_q[:, dy, dx, :] of (O, 3, 3, C)
+    weights (rows 9C apart) gives the product of the (C, O) tap w9[t]:
+    int8 exactly, bf16 within 2 K 2**-24 (|a| @ |b|)."""
+    rng = np.random.default_rng(10 + tap)
+    c, o, m = 32, 24, 96
+    dy, dx = divmod(tap, 3)
+    w_hwio = rng.integers(-128, 128, (3, 3, c, o)).astype(np.int8)
+    w9 = to_t(w_hwio.reshape(9, c, o))
+    w_q = to_t(w_hwio.transpose(3, 0, 1, 2))
+    view = w_q[:, dy, dx, :]
+    assert view.stride() == (9 * c, 1) and cuda_matmul.rows16_ok(view)
+    a = to_t(rng.integers(-128, 128, (m, c)).astype(np.int8))
+    got = cuda_matmul.matmul_nt(a, view)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, cuda_matmul.matmul_plain(a, w9[tap].contiguous()))
+    assert torch.equal(cuda_matmul.matmul_nt_plain(a, view), got)
+
+    a32 = rng.standard_normal((m, c)).astype(np.float32)
+    w32 = rng.standard_normal((o, 3, 3, c)).astype(np.float32)
+    ab, wb = to_t(a32).bfloat16(), to_t(w32).bfloat16()
+    got = cuda_matmul.matmul_nt(ab, wb[:, dy, dx, :])
+    want = cuda_matmul.matmul_plain(ab, wb[:, dy, dx, :].t().contiguous())
+    a_r, b_r = ab.float().numpy(), wb[:, dy, dx, :].float().numpy().T
+    diff = np.abs(got.numpy().astype(np.float64) - want.numpy())
+    assert got.dtype == torch.float32 and (diff <= bf16_bound(a_r, b_r)).all()
+
+
+def test_matmul_nt_wrapper_refuses_what_the_kernel_does_not_take():
+    a = torch.zeros(8, 40, dtype=torch.int8)
+    w = torch.zeros(6, 3, 3, 40, dtype=torch.int8)
+    with pytest.raises(ValueError, match=r"\(N, K\)"):
+        cuda_matmul.matmul_nt(a, w)
+    with pytest.raises(ValueError, match="inner"):
+        cuda_matmul.matmul_nt(a, w[:, 0, 0, :8])
+    with pytest.raises(TypeError, match="int8"):
+        cuda_matmul.matmul_nt(a, w[:, 0, 0, :].bfloat16())
+    # on the card, rows must start on 16 bytes: 360-byte rows are refused
+    # (checked before the device, so the CPU shows it)
+    a48 = torch.zeros(8, 48, dtype=torch.int8)[:, :40]
+    with pytest.raises(ValueError, match="16 bytes"):
+        cuda_matmul.matmul_nt_cuda(a48, w[:, 1, 1, :])
+    with pytest.raises(ValueError, match="16 bytes"):
+        cuda_matmul.matmul_nt_cuda(a, torch.zeros(6, 48, dtype=torch.int8)[:, :40])
+    with pytest.raises(ValueError, match="cuda"):
+        cuda_matmul.matmul_nt_cuda(a48, torch.zeros(6, 48, dtype=torch.int8)[:, :40])
+    before = cuda_matmul.launches
+    got = cuda_matmul.matmul_nt(a, w[:, 1, 1, :])  # the CPU takes any strides
+    assert cuda_matmul.launches == before and got.shape == (8, 6)

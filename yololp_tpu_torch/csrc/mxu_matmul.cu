@@ -1,5 +1,5 @@
-// (M, K) @ (K, N) on the tensor cores, for sm_90a: bf16 x bf16 -> fp32 and
-// int8 x int8 -> int32.
+// (M, K) @ B on the tensor cores, for sm_90a: bf16 x bf16 -> fp32 and
+// int8 x int8 -> int32, on the shared Hopper mainloop (hopper_gemm.cuh).
 //
 // Replaces the Pallas TPU kernel tools/probe_mxu_int8.py:_mm_kernel
 // (pallas_matmul: a tiled matmul with full-K blocks and B resident, the
@@ -7,325 +7,178 @@
 // the `dots` lowering of the int8 convs (quant/int8_infer.py:conv3x3_as_dots
 // and the 1x1 convs), where K = C and N = O of every int8 conv of the model.
 //
-// Function. a (M, K) and b (K, N), row-major and contiguous, one type;
-// out (M, N) row-major, fp32 for bf16 inputs and int32 for int8 inputs.
-// Any M, N, K: the ragged edges are zero-filled in shared memory and the
-// stores are bounds-checked. Offsets are 64-bit (M * K reaches 1e8 and more
-// on the conv taps).
+// Function. a (M, K) with rows lda elements apart; B either K-major, b_t
+// (N, K) with rows ldb apart (int8 or bf16), or, for bf16 only, MN-major,
+// b (K, N) with rows ldb apart; out (M, N) row-major, fp32 for bf16 inputs
+// and int32 for int8 inputs. Row strides and base addresses are multiples
+// of 16 bytes (the wrapper pads a copy where they are not); any M, N, K:
+// TMA zero-fills past the edges, and the stores are bounds-checked.
 //
-// Design: a block computes a 128 x BN tile (BN = 64 when N <= 64, else 128)
-// with 8 warps (4 along M, 2 along N), each warp 32 x BN/2 as 2 x BN/16
-// mma.sync tiles: m16n8k32.s8 with an s32 accumulator, or m16n8k16.bf16
-// with an fp32 accumulator. Both take 32 bytes of K a step and have the same
-// fragment layout in bytes, so one kernel body serves both types. The K loop
-// takes 64 bytes a stage, two stages deep. A goes to shared memory through
-// cp.async (byte copies when a row is not a multiple of 16 bytes). mma.sync
-// wants B as "col" fragments, K contiguous for each n; B arrives row-major
-// (K, N), so each thread loads a 4-row x 4-byte block of it into registers
-// (the next stage's, while the current one computes), transposes it there
-// (bytes for int8, 16-bit halves for bf16; ldmatrix.trans moves only 16-bit
-// elements) and stores it as [n][k] rows. Shared rows are padded to 80 bytes
-// so fragment loads hit 32 distinct banks.
+// Design: 128 x BN tiles (BN = 16, 64 or 128 by N), walked by a persistent
+// grid (one block per SM), a ring of 4-8 stages of 128 bytes of K. One thread of the producer warpgroup loads A and B by TMA
+// (128B swizzle) into the ring; two consumer warpgroups run
+// wgmma.mma_async m64nBNk32 s8 or m64nBNk16 bf16 from shared memory, one
+// group in flight. 8-bit wgmma takes K-major operands only, so int8 B comes
+// as b_t; bf16 B is read as (K, N) with the descriptor's transpose bit
+// (MN-major), with no transposed copy. The epilogue stages the tile in
+// shared memory and stores it by TMA (or 16-byte stores at a ragged edge).
 //
 // What bounds it on an H100: at the probe's shapes, (16384, 512) @ (512, 512)
 // in bf16 moves 17.3 MB in and 33.6 MB out against 8.6 GFLOP: bytes (15.2 us
 // at 3.35 TB/s); (4096, 2048) @ (2048, 2048) is 34.4 GFLOP: operations
 // (34.7 us of the 989 TFLOP/s bf16 peak, 17.4 us of the 1979 TOP/s int8
-// peak). The fp32 / int32 output is most of the bytes. This first
-// version uses mma.sync, not wgmma, and a two-stage synchronous pipeline, so
-// it runs well below the tensor-core peak.
+// peak). The fp32 / int32 output is most of the bytes at small K.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 
-constexpr int kBM = 128;     // rows of A per block
-constexpr int kBKB = 64;     // reduction bytes per stage
-constexpr int kLds = 80;     // padded shared row stride in bytes
-constexpr int kThreads = 256;
+using hg::kBM;
+using hg::kKB;
 
-struct S8 {
-  using Acc = int;
-  static constexpr int kEs = 1;
-};
+constexpr int kThreads = 128 + hg::kConsumers;  // one producer warpgroup (one thread loads)
 
-struct Bf16 {
-  using Acc = float;
-  static constexpr int kEs = 2;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n"); }
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A stage: 128 rows x 64 bytes, two 16-byte pieces a thread.
-template <bool kVecA>
-__device__ __forceinline__ void load_a(int8_t* As, const int8_t* a, int M, int Kb, int m0,
-                                       int kt) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int q = threadIdx.x + j * kThreads;
-    const int r = q >> 2;
-    const int kb = kt * kBKB + (q & 3) * 16;
-    const int m = m0 + r;
-    int8_t* dst = As + r * kLds + (q & 3) * 16;
-    if (kVecA) {
-      const bool pred = m < M && kb < Kb;
-      cp_async16(dst, pred ? a + (size_t)m * Kb + kb : a, pred);
-    } else {
-      const int8_t* row = a + (size_t)(m < M ? m : 0) * Kb;
-#pragma unroll 4
-      for (int e = 0; e < 16; ++e) dst[e] = (m < M && kb + e < Kb) ? row[kb + e] : (int8_t)0;
-    }
-  }
-}
-
-// B stage: kBKB / kEs rows of K by kBN columns of N, in blocks of 4 rows x 4
-// bytes, kBN / 64 blocks a thread; neighbouring threads take neighbouring
-// column words of a row (coalesced loads).
-template <class T, int kBN>
-struct BBlocks {
-  static constexpr int kPerThread = kBN / 64;
-  static constexpr int kColWords = kBN * T::kEs / 4;
-  uint32_t r[kPerThread][4];
-};
-
-template <class T, int kBN>
-__device__ __forceinline__ void load_b(BBlocks<T, kBN>& blk, const int8_t* b, int K, int Nb,
-                                       int n0b, int kt, bool vecB) {
-  constexpr int kRows = kBKB / T::kEs;
-#pragma unroll
-  for (int j = 0; j < BBlocks<T, kBN>::kPerThread; ++j) {
-    const int q = threadIdx.x + j * kThreads;
-    const int kg = q / BBlocks<T, kBN>::kColWords;
-    const int cw = q % BBlocks<T, kBN>::kColWords;
-    const int k = kt * kRows + kg * 4;
-    const int cb = n0b + cw * 4;
-    if (vecB && k + 3 < K && cb + 3 < Nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        blk.r[j][i] = *reinterpret_cast<const uint32_t*>(b + (size_t)(k + i) * Nb + cb);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t w = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (k + i < K && cb + e < Nb)
-            w |= (uint32_t)(uint8_t)b[(size_t)(k + i) * Nb + cb + e] << (8 * e);
-        blk.r[j][i] = w;
-      }
-    }
-  }
-}
-
-// The loaded blocks, transposed, into Bs[n][k] (rows of kLds bytes).
-template <class T, int kBN>
-__device__ __forceinline__ void store_b(int8_t* Bs, const BBlocks<T, kBN>& blk) {
-#pragma unroll
-  for (int j = 0; j < BBlocks<T, kBN>::kPerThread; ++j) {
-    const int q = threadIdx.x + j * kThreads;
-    const int kg = q / BBlocks<T, kBN>::kColWords;
-    const int cw = q % BBlocks<T, kBN>::kColWords;
-    const uint32_t* r = blk.r[j];
-    if constexpr (T::kEs == 1) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int s = 8 * c;
-        const uint32_t w = ((r[0] >> s) & 0xffu) | (((r[1] >> s) & 0xffu) << 8) |
-                           (((r[2] >> s) & 0xffu) << 16) | (((r[3] >> s) & 0xffu) << 24);
-        *reinterpret_cast<uint32_t*>(Bs + (cw * 4 + c) * kLds + kg * 4) = w;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int s = 16 * c;
-        const uint32_t lo = ((r[0] >> s) & 0xffffu) | (((r[1] >> s) & 0xffffu) << 16);
-        const uint32_t hi = ((r[2] >> s) & 0xffffu) | (((r[3] >> s) & 0xffffu) << 16);
-        *reinterpret_cast<uint2*>(Bs + (cw * 2 + c) * kLds + kg * 8) = make_uint2(lo, hi);
-      }
-    }
-  }
-}
-
-template <class T, int kBN, bool kVecA>
-__global__ void __launch_bounds__(kThreads)
-    mxu_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                      typename T::Acc* __restrict__ out, int M, int N, int K, int vecB) {
+template <class T, int BN, bool kMn>
+__global__ void __launch_bounds__(kThreads, 1)
+    mxu_matmul_kernel(const __grid_constant__ CUtensorMap amap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap omap, typename T::Acc* __restrict__ out,
+                      long long ldo, int M, int N, int K, int stages, int use_tma) {
   using Acc = typename T::Acc;
-  constexpr int kNI = kBN / 16;  // 8-column mma tiles per warp
-  __shared__ __align__(16) int8_t As[2][kBM * kLds];
-  __shared__ __align__(16) int8_t Bs[2][kBN * kLds];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp & 3;
-  const int warp_n = warp >> 2;
-  const int gid = lane >> 2;  // groupID of the mma fragment layouts
-  const int tig = lane & 3;   // thread in group
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int Kb = K * T::kEs;
-  const int Nb = N * T::kEs;
-
-  Acc acc[2][kNI][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < kNI; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  BBlocks<T, kBN> blk;
-  const int KT = (Kb + kBKB - 1) / kBKB;
-  load_a<kVecA>(As[0], a, M, Kb, m0, 0);
-  cp_async_commit();
-  load_b<T, kBN>(blk, b, K, Nb, n0 * T::kEs, 0, vecB);
-  store_b<T, kBN>(Bs[0], blk);
-  for (int kt = 0; kt < KT; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < KT) {
-      load_a<kVecA>(As[st ^ 1], a, M, Kb, m0, kt + 1);
-      load_b<T, kBN>(blk, b, K, Nb, n0 * T::kEs, kt + 1, vecB);
+  extern __shared__ uint8_t smem_raw[];
+  const hg::Ring r = hg::carve(smem_raw, BN, sizeof(Acc), stages);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hg::mbar_init(&r.full[s], 1);   // the producer's arrive.expect_tx
+      hg::mbar_init(&r.empty[s], 2);  // one arrival per consumer warpgroup
     }
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const int8_t* as = As[st];
-    const int8_t* bs = Bs[st];
-#pragma unroll
-    for (int s = 0; s < kBKB / 32; ++s) {
-      uint32_t af[2][4], bf[kNI][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* p = as + (warp_m * 32 + mi * 16 + gid) * kLds + s * 32 + tig * 4;
-        af[mi][0] = lds32(p);
-        af[mi][1] = lds32(p + 8 * kLds);
-        af[mi][2] = lds32(p + 16);
-        af[mi][3] = lds32(p + 8 * kLds + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < kNI; ++ni) {
-        const int8_t* p = bs + (warp_n * (kBN / 2) + ni * 8 + gid) * kLds + s * 32 + tig * 4;
-        bf[ni][0] = lds32(p);
-        bf[ni][1] = lds32(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < kNI; ++ni) mma(acc[mi][ni], af[mi], bf[ni]);
-    }
-    if (kt + 1 < KT) store_b<T, kBN>(Bs[st ^ 1], blk);
-    __syncthreads();
+    hg::fence_barrier_init();
   }
+  __syncthreads();
 
-  // accumulator element r of tile (mi, ni) is at row gid (+8 for r >= 2)
-  // and column 2*tig + (r & 1) of the 16 x 8 tile; the two columns of a row
-  // are stored as one 8-byte pair where both lie inside and N is even
-  const bool pairs = (N & 1) == 0;
+  const int wg = threadIdx.x / 128;
+  const int NT = (N + BN - 1) / BN;
+  const int tiles = (M + kBM - 1) / kBM * NT;
+  const int KT = (K * T::kEs + kKB - 1) / kKB;
+  if (wg == 0) {
+    if (threadIdx.x == 0) {
+      constexpr int kElems = kKB / T::kEs;  // K elements a stage
+      hg::ProducerRing p;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / NT * kBM, n0 = tile % NT * BN;
+        for (int kt = 0; kt < KT; ++kt, p.next(stages)) {
+          p.wait_empty(r);
+          hg::mbar_arrive_expect_tx(&r.full[p.s], hg::stage_bytes(BN));
+          hg::tma_load_2d(hg::smem_u32(r.a + p.s * kBM * kKB), &amap, &r.full[p.s], kt * kElems,
+                          m0);
+          const uint32_t b = hg::smem_u32(r.b + p.s * BN * kKB);
+          if (kMn) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < kNI; ++ni) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + warp_m * 32 + mi * 16 + gid + 8 * h;
-        const int n = n0 + warp_n * (kBN / 2) + ni * 8 + tig * 2;
-        if (m >= M) continue;
-        Acc* dst = out + (size_t)m * N + n;
-        const Acc v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        if (pairs && n + 1 < N) {
-          if constexpr (T::kEs == 1)
-            *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
-          else
-            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          if (n < N) dst[0] = v0;
-          if (n + 1 < N) dst[1] = v1;
+            for (int q = 0; q < BN / 64; ++q)
+              hg::tma_load_2d(b + q * 64 * kKB, &bmap, &r.full[p.s], n0 + 64 * q, kt * kElems);
+          } else {
+            hg::tma_load_2d(b, &bmap, &r.full[p.s], kt * kElems, n0);
+          }
         }
       }
     }
+  } else {
+    const int cw = wg - 1;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / NT * kBM, n0 = tile % NT * BN;
+      Acc acc[BN / 2];
+      hg::consume<T, BN, kMn, false>(acc, r, stages, KT, cw, s, phase);
+      hg::store_tile<BN>(acc, [](Acc v, int) { return v; }, r, cw, &omap, use_tma != 0, out,
+                         ldo, M, N, m0 + 64 * cw, n0);
+    }
+    hg::store_drain();
   }
 }
 
-template <class T, int kBN>
-void launch(const void* a, const void* b, void* out, int M, int N, int K, bool vecA, bool vecB,
-            cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((N + kBN - 1) / kBN));
+template <class T, int BN, bool kMn>
+int launch(const void* a, long long lda, const void* b, long long ldb, void* out, long long M,
+           long long N, long long K, cudaStream_t stream) {
   using Acc = typename T::Acc;
-  const int8_t* pa = static_cast<const int8_t*>(a);
-  const int8_t* pb = static_cast<const int8_t*>(b);
-  if (vecA)
-    mxu_matmul_kernel<T, kBN, true><<<grid, kThreads, 0, stream>>>(
-        pa, pb, static_cast<Acc*>(out), M, N, K, (int)vecB);
-  else
-    mxu_matmul_kernel<T, kBN, false><<<grid, kThreads, 0, stream>>>(
-        pa, pb, static_cast<Acc*>(out), M, N, K, (int)vecB);
+  constexpr CUtensorMapDataType kIn =
+      T::kEs == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapDataType kOut =
+      T::kEs == 1 ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr unsigned kElems = kKB / T::kEs;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap amap, bmap, omap;
+  bool use_tma = false;
+  int err = hg::encode_2d(&amap, kIn, a, K, M, lda * T::kEs, kElems, kBM, sw);
+  if (!err)
+    err = kMn ? hg::encode_2d(&bmap, kIn, b, N, K, ldb * T::kEs, 64, kElems, sw)
+              : hg::encode_2d(&bmap, kIn, b, K, N, ldb * T::kEs, kElems, BN, sw);
+  if (!err) err = hg::output_map(&omap, &use_tma, kOut, sizeof(Acc), out, M, N, BN);
+  if (err) return err;
+  const int stages = hg::plan_stages(BN, sizeof(Acc));
+  const int smem = hg::smem_bytes(BN, sizeof(Acc), stages);
+  int blocks = 0;
+  err = hg::prepare<mxu_matmul_kernel<T, BN, kMn>>(
+      kThreads, smem, (M + kBM - 1) / kBM * ((N + BN - 1) / BN), &blocks);
+  if (err) return err;
+  mxu_matmul_kernel<T, BN, kMn><<<blocks, kThreads, smem, stream>>>(
+      amap, bmap, omap, static_cast<Acc*>(out), N, (int)M, (int)N, (int)K, stages, (int)use_tma);
+  return (int)cudaGetLastError();
+}
+
+template <class T, bool kMn>
+int launch_bn(const void* a, long long lda, const void* b, long long ldb, void* out, long long M,
+              long long N, long long K, cudaStream_t stream) {
+  switch (hg::tile_n(N)) {
+    case 16:
+      if constexpr (!kMn) return launch<T, 16, kMn>(a, lda, b, ldb, out, M, N, K, stream);
+      return (int)cudaErrorInvalidValue;  // MN-major panels are 64 columns wide
+    case 64:
+      return launch<T, 64, kMn>(a, lda, b, ldb, out, M, N, K, stream);
+    default:
+      return launch<T, 128, kMn>(a, lda, b, ldb, out, M, N, K, stream);
+  }
 }
 
 }  // namespace
 
-// a (M, K) and b (K, N) row-major contiguous on card `device`; mode 0: int8
-// inputs, out int32; mode 1: bf16 inputs, out fp32; out (M, N) row-major.
-// Launches on `stream`, allocates nothing, returns the cudaError_t of the
-// launch (0 on success). The library links its own CUDA runtime, hence
-// `device`.
-extern "C" int mxu_matmul_launch(const void* a, const void* b, void* out, long long M,
-                                 long long N, long long K, int mode, int device,
-                                 cudaStream_t stream) {
-  if ((mode != 0 && mode != 1) || M <= 0 || N <= 0 || K <= 0)
+// a (M, K), rows lda elements apart; mode 0: int8 inputs, out int32; mode 1:
+// bf16 inputs, out fp32. b_mn 0: b is b_t (N, K), rows ldb apart; b_mn 1
+// (bf16 only, N > 16): b is (K, N), rows ldb apart. out (M, N) contiguous.
+// Row strides and base addresses of a and b multiples of 16 bytes. Launches
+// on `stream`, allocates nothing, returns 0, a cudaError_t, or one of
+// hopper_gemm.cuh's tensor-map codes. The library links its own CUDA
+// runtime, hence `device`.
+extern "C" int mxu_matmul_launch(const void* a, long long lda, const void* b, long long ldb,
+                                 int b_mn, void* out, long long M, long long N, long long K,
+                                 int mode, int device, cudaStream_t stream) {
+  if ((mode != 0 && mode != 1) || (b_mn && mode != 1) || M <= 0 || N <= 0 || K <= 0)
     return (int)cudaErrorInvalidValue;
   const long long es = mode == 0 ? 1 : 2;
-  // int row offsets inside the kernel: M + a tile, and the row widths in
-  // bytes, stay below 2**31; the grid's y extent is at most 65535
-  if (M >= (1LL << 31) - kBM || K * es >= (1LL << 30) || N * es >= (1LL << 30) ||
-      (N + 63) / 64 > 65535)
+  if ((lda * es) % 16 || (ldb * es) % 16 || (reinterpret_cast<uintptr_t>(a) & 15) ||
+      (reinterpret_cast<uintptr_t>(b) & 15))
+    return (int)cudaErrorInvalidValue;
+  // int coordinates, row counts and tile numbers inside the kernel
+  if (M >= (1LL << 31) - hg::kBM || K >= (1LL << 31) || N >= (1LL << 31) ||
+      (M + hg::kBM - 1) / hg::kBM * ((N + 15) / 16) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool vecA = (K * es) % 16 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
-  const bool vecB = (N * es) % 4 == 0 && (reinterpret_cast<uintptr_t>(b) & 3) == 0;
-  const int m = (int)M, n = (int)N, k = (int)K;
-  if (mode == 0) {
-    if (N <= 64)
-      launch<S8, 64>(a, b, out, m, n, k, vecA, vecB, stream);
-    else
-      launch<S8, 128>(a, b, out, m, n, k, vecA, vecB, stream);
-  } else {
-    if (N <= 64)
-      launch<Bf16, 64>(a, b, out, m, n, k, vecA, vecB, stream);
-    else
-      launch<Bf16, 128>(a, b, out, m, n, k, vecA, vecB, stream);
-  }
-  return (int)cudaGetLastError();
+  if (mode == 0) return launch_bn<hg::S8, false>(a, lda, b, ldb, out, M, N, K, stream);
+  if (b_mn) return launch_bn<hg::Bf16, true>(a, lda, b, ldb, out, M, N, K, stream);
+  return launch_bn<hg::Bf16, false>(a, lda, b, ldb, out, M, N, K, stream);
+}
+
+// The plan of a launch with N output columns: {tile rows, tile columns,
+// stages, dynamic shared memory bytes}.
+extern "C" void mxu_matmul_plan(long long N, int* plan) {
+  const int bn = hg::tile_n(N);
+  const int stages = hg::plan_stages(bn, 4);
+  plan[0] = hg::kBM;
+  plan[1] = bn;
+  plan[2] = stages;
+  plan[3] = hg::smem_bytes(bn, 4, stages);
 }

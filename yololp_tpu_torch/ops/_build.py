@@ -2,8 +2,11 @@
 
 Each source becomes a shared library with a plain C interface, loaded with
 ctypes. Libraries go to build/kernels/ at the checkout root, named by a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. `build_all` starts one nvcc per source, all at once. A failed
+of the source, the headers beside it (csrc/*.cuh, which every source may
+include) and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. The kernels that use TMA take cuTensorMapEncodeTiled
+from the driver at run time (cudaGetDriverEntryPoint), so nothing links
+against libcuda. `build_all` starts one nvcc per source, all at once. A failed
 build raises with nvcc's stderr.
 """
 
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,10 +46,12 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+def _lib_path(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -70,6 +76,40 @@ def _finish(name: str, started) -> None:
                            f"(exit {proc.returncode}):\n{stderr}{stdout}")
     PTXAS_REPORT[name] = stderr.strip()
     os.replace(tmp, out)
+
+
+def _kernel_entry(mangled: str) -> str:
+    """kernel<template arguments> of a mangled entry name (the name is the
+    length-prefixed identifier ending in _kernel), else the name itself."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):  # the length prefix may end a longer digit run
+            name = mangled[m.end():m.end() + int(m.group()[i:])]
+            if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+                rest = mangled[m.end() + len(name):]
+                if not rest.startswith("I"):
+                    return name
+                args = re.findall(r"N2hg\d+(S8|Bf16)E|L[ib](\d+)E", rest)
+                return f"{name}<{','.join(a or b for a, b in args)}>"
+    return mangled
+
+
+def ptxas_usage(name: str) -> List[dict]:
+    """Per kernel instance of csrc/<name>.cu's last build here: its entry
+    (kernel name and template arguments, read from the mangled name),
+    registers, static shared memory and spill bytes, from ptxas -v."""
+    rows: List[dict] = []
+    for line in PTXAS_REPORT.get(name, "").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            rows.append(dict(entry=_kernel_entry(entry.group(1)), registers=None, smem_bytes=0,
+                             spill_bytes=0))
+        elif rows and "spill stores" in line:
+            rows[-1]["spill_bytes"] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif rows and "Used" in line:
+            rows[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return rows
 
 
 def build_all() -> None:

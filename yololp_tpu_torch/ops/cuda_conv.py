@@ -7,7 +7,10 @@ launches the kernel or raises. `launches` counts the kernel's launches.
 
 Layouts are the kernel's: activations NHWC, weights (O, KH, KW, C), one
 contiguous reduction vector per output channel. KH = KW in {1, 3}, stride in
-{1, 2}, padding KH // 2 on every side (the port's convs).
+{1, 2}, padding KH // 2 on every side (the port's convs). The kernel reads
+the weights through a TMA tensor map, built once per weight tensor and kept
+in `_WEIGHT_MAPS` (with a reference to the tensor, so that its memory is
+not reused while the map points at it).
 
 Epilogue (per output channel o): y = acc * a[o] + b[o] as a multiply and an
 add rounded separately, then int8 `clip(round_half_even(y), 0 if relu else
@@ -18,14 +21,21 @@ accumulator itself.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from yololp_tpu_torch.ops import _build
+from yololp_tpu_torch.ops.cuda_matmul import rows16
 
 launches = 0
+
+# (address, shape, version, device) of a weight tensor -> (the tensor, the
+# rows the map reads, the map's 128 bytes); the oldest dropped past the cap
+_WEIGHT_MAPS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_WEIGHT_MAPS_CAP = 256
 
 _MODES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2, torch.int32: 3}
 
@@ -103,21 +113,60 @@ def int8_conv_cuda(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
     out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=x_q.device)
     if out.numel() == 0:
         return out
-    fn = _bind(_build.load("int8_conv"))
+    lib = _build.load("int8_conv")
+    fn = _launcher(lib)
+    wmap = weight_map(lib, w_q)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    err = fn(x_q.data_ptr(), w_q.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+    err = fn(x_q.data_ptr(), wmap, a.data_ptr(), b.data_ptr(), out.data_ptr(),
              n, h, w, c, o, kh, stride, _MODES[out_dtype], int(relu),
              x_q.device.index or 0, stream)
     if err != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"int8_conv kernel launch failed: error {err} (a cudaError_t, "
+                           f"or 9999 / 10000 + CUresult from the tensor-map encoder)")
     launches += 1
     return out
 
 
-def _bind(lib: ctypes.CDLL):
+def weight_map(lib: ctypes.CDLL, w_q: torch.Tensor):
+    """The TMA map of w_q (O, KH, KW, C) as (O, K) rows, built once per
+    weight tensor (a copy with rows padded to 16 bytes where K % 16 != 0);
+    `lib` bound by _launcher."""
+    version = -1 if w_q.is_inference() else w_q._version
+    key = (w_q.data_ptr(), tuple(w_q.shape), version, w_q.device)
+    hit = _WEIGHT_MAPS.get(key)
+    if hit is None:
+        o = w_q.shape[0]
+        rows, ld = rows16(w_q.reshape(o, -1))
+        buf = ctypes.create_string_buffer(128)
+        err = lib.int8_conv_weight_map(rows.data_ptr(), o, rows.shape[1], ld, buf)
+        if err != 0:
+            raise RuntimeError(f"int8_conv weight map failed: error {err}")
+        hit = _WEIGHT_MAPS[key] = (w_q, rows, buf)
+        while len(_WEIGHT_MAPS) > _WEIGHT_MAPS_CAP:
+            _WEIGHT_MAPS.popitem(last=False)
+    return hit[2]
+
+
+def plan(o: int, out_dtype: torch.dtype = torch.int8) -> dict:
+    """The tile, stage count and dynamic shared memory of a launch with O
+    output channels writing out_dtype (built on first use)."""
+    lib = _build.load("int8_conv")
+    out = (ctypes.c_int * 4)()
+    lib.int8_conv_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.int8_conv_plan(o, _MODES[out_dtype], out)
+    return dict(tile=(out[0], out[1]), stages=out[2], smem_bytes=out[3])
+
+
+def _launcher(lib: ctypes.CDLL):
+    """int8_conv_launch and int8_conv_weight_map of `lib`, bound once."""
     fn = lib.int8_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        wm = lib.int8_conv_weight_map
+        wm.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p]
+        wm.restype = ctypes.c_int
     return fn
 
 

@@ -192,16 +192,21 @@ def conv3x3_as_dots(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 same-padding conv(int8, int8) -> int32, NHWC, as 9
     shifted (N*H*W, C) @ (C, O) matmuls in csrc/mxu_matmul.cu, the int32
     partials summed by plain adds (yololp_tpu/quant/int8_infer.py:226).
-    x (N, H, W, C) int8, w_hwio (3, 3, C, O) int8. Equal to the conv: the
-    integer sums are exact in any order."""
+    x (N, H, W, C) int8, w_hwio (3, 3, C, O) int8. Each tap's weights go to
+    the kernel as the K-major (O, C) view w[:, dy, dx, :] of the (O, 3, 3, C)
+    weights, rows 9C apart: no copy when w_hwio is the permuted view of
+    contiguous (O, 3, 3, C) weights, as the int8 modules pass them. Equal to
+    the conv: the integer sums are exact in any order."""
     n, h, w, c = x.shape
-    w9 = w_hwio.reshape(9, c, w_hwio.shape[-1])
+    w_q = w_hwio.permute(3, 0, 1, 2)
+    if w_q.stride(-1) != 1:
+        w_q = w_q.contiguous()
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     acc = None
     for dy in range(3):
         for dx in range(3):
             tap = xp[:, dy:dy + h, dx:dx + w, :].contiguous().reshape(n * h * w, c)
-            y = cuda_matmul.matmul(tap, w9[dy * 3 + dx].contiguous())
+            y = cuda_matmul.matmul_nt(tap, w_q[:, dy, dx, :])
             acc = y if acc is None else acc + y
     return acc.reshape(n, h, w, -1)
 
@@ -221,7 +226,7 @@ def _int8_conv(a_q, w_q, stride: int, padding: int, conv_impl: str = "conv") -> 
         if kh == 3:
             return conv3x3_as_dots(a_q, w_q.permute(1, 2, 3, 0))
         n, h, w, c = a_q.shape
-        y = cuda_matmul.matmul(a_q.reshape(n * h * w, c), w_q.reshape(o, c).t().contiguous())
+        y = cuda_matmul.matmul_nt(a_q.reshape(n * h * w, c), w_q.reshape(o, c))
         return y.reshape(n, h, w, o)
     zeros = torch.zeros(o, dtype=torch.float32, device=w_q.device)
     return cuda_conv.int8_conv(a_q, w_q, zeros, zeros, stride, False, torch.int32)
