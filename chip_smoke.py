@@ -10,7 +10,9 @@ toolkit. Phases, each of which raises on failure:
   2. build every kernel of csrc/ with nvcc (one process per source, in parallel);
   3. the greedy-NMS kernel against its plain PyTorch version, exact keep-mask
      equality, on clustered boxes, a conf-gated zero tail, exact score ties,
-     degenerate boxes, a 128-deep suppression chain and K = 1024;
+     degenerate boxes, a 128-deep suppression chain, K = 1024, B = 1 and
+     B = 128, K = 1, 300 and 1000, every score 0, and a 512-deep chain that
+     crosses every band of rows (and every block of the kernel's cluster);
   4. the main path: yololps at full width, every parameter drawn from a seeded
      generator, fused to the deploy graph, `Inferer.detect_batch` on 32 BGR
      frames at 640x640 and 360x640 (pad only, no cv2), with the kernel's launch
@@ -18,8 +20,12 @@ toolkit. Phases, each of which raises on failure:
      through the plain NMS on the CPU (exact equality), and one image in fp32
      with TF32 off on the card against the port on the CPU;
   5. times, by CUDA events: end-to-end img/s at batch 32 in bf16 and fp32, a
-     torch.profiler table of one bf16 batch by kernel, and the NMS kernel and
-     its plain version on the main path's own candidates;
+     torch.profiler table of one bf16 batch by kernel (the NMS kernel's
+     device time read from it by name), and the NMS kernel on the main
+     path's own candidates at B = 32 and B = 1, timed alone and by the
+     profiler, beside its plain version, its bound and the kept count; then
+     the NMS stage of one bf16 batch by kernel (gate reductions, sort,
+     gathers, the kernel, compaction);
   6. the int8 conv kernel against its plain PyTorch version, exact equality:
      every RepBlock chain geometry of yololps at 640 with N = 32 (int8 out
      with relu, then bf16 and fp32 exits), a 3x3/s2, 1x1 with O = 277 and 12,
@@ -65,7 +71,7 @@ toolkit. Phases, each of which raises on failure:
      probe's shapes (ms, rate, bound, plain version, and torch.matmul /
      torch._int_mm as the library's time), with tiles, stages, shared memory
      and ptxas registers; then each ported measurement tool's main() once at
-     small step counts and batch 32.
+     small step counts and batch 32 (bench_nms too).
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -132,10 +138,17 @@ def clustered_boxes(rng, n, n_clusters=8, scale=640.0):
     return np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
 
 
+def chain_boxes(n):
+    """Box i overlaps only box i + 1 (IoU 1/4): greedy keeps every other box
+    at iou_thres 0.2."""
+    xs = np.arange(n, dtype=np.float32) * 6.0
+    return np.stack([xs, np.zeros(n, np.float32), xs + 10.0, np.full(n, 10.0, np.float32)], -1)
+
+
 def mask_cases(rng):
     """name -> (boxes (B, K, 4), score-sorted scores (B, K), iou_thres)."""
-    def scores(b, k):
-        return np.sort(rng.uniform(0.01, 1.0, (b, k)).astype(np.float32), -1)[:, ::-1].copy()
+    def scores(b, k, g=rng):
+        return np.sort(g.uniform(0.01, 1.0, (b, k)).astype(np.float32), -1)[:, ::-1].copy()
 
     boxes = np.stack([clustered_boxes(rng, 512) for _ in range(BATCH)])
     gated = scores(BATCH, 512)
@@ -144,16 +157,34 @@ def mask_cases(rng):
     tied[:, 50:250] = tied[:, 50:51]
     flipped = boxes.copy()
     flipped[:, ::3] = flipped[:, ::3][..., [2, 3, 0, 1]]
-    xs = np.arange(128, dtype=np.float32) * 6.0
-    chain = np.stack([xs, np.zeros(128, np.float32), xs + 10.0, np.full(128, 10.0, np.float32)], -1)
-    return {
+    cases = {
         "clustered_B32_K512": (boxes, scores(BATCH, 512), 0.45),
         "conf_gated_zero_tail": (boxes, gated, 0.45),
         "exact_score_ties": (boxes, tied, 0.45),
         "degenerate_boxes": (flipped, scores(BATCH, 512), 0.45),
-        "chain_128_deep": (np.stack([chain] * 4), np.tile(np.linspace(1, 0.5, 128, dtype=np.float32), (4, 1)), 0.2),
+        "chain_128_deep": (np.stack([chain_boxes(128)] * 4),
+                           np.tile(np.linspace(1, 0.5, 128, dtype=np.float32), (4, 1)), 0.2),
         "clustered_K1024": (np.stack([clustered_boxes(rng, 1024) for _ in range(8)]), scores(8, 1024), 0.45),
     }
+    # the cases added with the cluster design draw from a generator of their
+    # own, so `rng` and every later phase see the draws they saw before
+    more = np.random.default_rng(SEED + 1)
+    k300 = scores(4, 300, more)
+    k300[:, 200:] = 0.0
+    k1 = scores(BATCH, 1, more)
+    k1[::2] = 0.0
+    cases.update({
+        "B1_K512": (boxes[:1].copy(), scores(1, 512, more), 0.45),
+        "B128_K512": (np.stack([clustered_boxes(more, 512) for _ in range(128)]),
+                      scores(128, 512, more), 0.45),
+        "K1": (boxes[:, :1].copy(), k1, 0.45),
+        "K300_zero_tail": (np.stack([clustered_boxes(more, 300) for _ in range(4)]), k300, 0.45),
+        "K1000": (np.stack([clustered_boxes(more, 1000) for _ in range(8)]), scores(8, 1000, more), 0.45),
+        "all_scores_zero": (boxes, np.zeros((BATCH, 512), np.float32), 0.45),
+        "chain_512_every_band": (np.stack([chain_boxes(512)] * 4),
+                                 np.tile(np.linspace(1, 0.5, 512, dtype=np.float32), (4, 1)), 0.2),
+    })
+    return cases
 
 
 @torch.no_grad()
@@ -184,7 +215,7 @@ def frames(rng):
             for i in range(BATCH)]
 
 
-def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2) -> dict:
+def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2, top_n: int = 12) -> dict:
     """Device time by kernel over `calls` warm calls of `fn`, by torch.profiler,
     beside the window's CUDA-event time: where an end-to-end batch goes."""
     from torch.autograd import DeviceType
@@ -205,7 +236,7 @@ def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2) -> dict:
         if e.device_type == DeviceType.CUDA:
             kernels[e.key] = getattr(e, "self_device_time_total", 0) / 1e3 / calls
     busy_ms = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:top_n]
     print(f"[{card}] profile, one {label} batch of {BATCH}: window {window_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), "
           f"{len(kernels)} kernel names")
@@ -230,6 +261,74 @@ def phase_kernels(cuda_nms, rng, dev):
         print(f"kernel vs plain [{name}] B={b.shape[0]} K={b.shape[1]}: equal, "
               f"kept {int(got.sum())}/{got.numel()}")
     return worst
+
+
+def nms_bound(b, k):
+    """(bound ms, bound_by) of the keep-mask of B images of K boxes: 20 bytes
+    read and 1 written a box; the K(K-1)/2 IoU tests and K areas at the
+    fp32 rate."""
+    nbytes = b * k * (16 + 4 + 1)
+    ops = b * (k * (k - 1) // 2 * IOU_PAIR_OPS + k * AREA_OPS)
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / FP32_OPS_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b > t_o else "operations")
+
+
+# the NMS stage's kernels by part, matched on the kernel's name in order
+# (a scatter/gather kernel instantiated with true scatters, false gathers)
+NMS_PARTS = (("greedy_nms kernel", ("greedy_nms_kernel",)),
+             ("sort", ("RadixSort", "radix", "sort")),
+             ("gate reductions (amax, argmax)", ("reduce_kernel",)),
+             ("compaction (cumsum, scatter)", ("scan", "internal_kernel<true")),
+             ("gathers", ("internal_kernel<false", "gather", "index")),
+             ("concatenations and copies", ("CatArray", "copy")))
+
+
+def nms_part(name):
+    for part, keys in NMS_PARTS:
+        if any(k in name for k in keys):
+            return part
+    return "elementwise and other"
+
+
+def phase_nms_times(results, card, cuda_nms, box_k, score_k, thr, pred, nms_kw):
+    """5 (NMS). The kernel's device time in the profiled bf16 batch; the
+    kernel on the main path's candidates at B = 32 and B = 1, timed alone
+    (CUDA events, back to back) and by the profiler, beside its plain
+    version, its bound and the kept count; the NMS stage of one bf16 batch
+    by kernel."""
+    from yololp_tpu_torch.ops.nms import non_max_suppression
+    from yololp_tpu_torch.utils.profiler import kernel_device_ms
+
+    in_batch = sum(v for k, v in results["profile_bf16"]["by_name"].items() if "greedy_nms_kernel" in k)
+    print(f"[{card}] greedy_nms_kernel in the profiled bf16 batch: {in_batch:.4f} ms device time")
+    rows = {}
+    for b in (score_k.shape[0], 1):
+        bx, sc = box_k[:b], score_k[:b]
+        keep = cuda_nms.greedy_nms_mask(bx, sc, thr)
+        kept = keep.sum(1)
+        for _ in range(5):
+            cuda_nms.greedy_nms_mask(bx, sc, thr)
+        ms = float(np.median(cuda_ms(lambda: cuda_nms.greedy_nms_mask(bx, sc, thr), 100)))
+        dev_ms = kernel_device_ms(lambda: cuda_nms.greedy_nms_mask(bx, sc, thr), "greedy_nms_kernel", 20)
+        plain_ms = float(np.median(cuda_ms(lambda: cuda_nms.greedy_nms_mask_plain(bx, sc, thr), 4)))
+        bound_ms, bound_by = nms_bound(b, bx.shape[1])
+        rows[b] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       kept=int(kept.sum()), kept_max=int(kept.max()))
+        print(f"[{card}] greedy_nms B={b} K={bx.shape[1]}: kept {int(kept.sum())} (at most "
+              f"{int(kept.max())} an image, the walk's steps), kernel {ms:.4f} ms timed alone (CUDA events, "
+              f"median of 5 windows of 100), {dev_ms:.4f} ms device time (profiler, 20 calls), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+
+    stage = profile_batch(lambda: non_max_suppression(pred, **nms_kw), card,
+                          label="NMS stage (bf16 decode)", top_n=30)
+    parts = {}
+    for name, ms in stage["by_name"].items():
+        parts[nms_part(name)] = parts.get(nms_part(name), 0.0) + ms
+    print(f"[{card}] NMS stage of one bf16 batch by part (device ms): " +
+          ", ".join(f"{p} {ms:.4f}" for p, ms in sorted(parts.items(), key=lambda kv: -kv[1])))
+    results["nms"] = dict(in_batch_device_ms=in_batch, by_batch=rows, stage=stage, stage_parts=parts)
+    return results["nms"]
+
 
 # yololps at 640: (RepBlock, S, C = O, links) of every deploy chain
 CHAINS = [("backbone/ERBlock_2_rep", 160, 64, 2), ("backbone/ERBlock_3_rep", 80, 128, 4),
@@ -741,7 +840,7 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
 
     from yololp_tpu_torch.ops import cuda_matmul
     from yololp_tpu_torch.quant.quantize import save_amax
-    from yololp_tpu_torch.tools import (probe_latency, probe_mxu_int8, probe_pallas_conv,
+    from yololp_tpu_torch.tools import (bench_nms, probe_latency, probe_mxu_int8, probe_pallas_conv,
                                        profile_int8, profile_sections)
     from yololp_tpu_torch.utils.profiler import model_flops
 
@@ -809,12 +908,13 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
         for name, fn, argv in (
                 ("probe_mxu_int8", probe_mxu_int8.main, ["--iters", "4"]),
                 ("probe_pallas_conv", probe_pallas_conv.main, ["--iters", "4", "--batch", str(BATCH)]),
-                ("profile_int8", profile_int8.main, ["--iters", "2", "--batch-size", str(BATCH),
+                ("profile_int8", profile_int8.main, ["--iters", "6", "--batch-size", str(BATCH),
                                                      "--calib-pt", calib]),
                 ("probe_latency", probe_latency.main, ["--iters", "2", "--batches", f"1,{BATCH}",
                                                        "--int8"]),
                 ("profile_sections", profile_sections.main, ["--iters", "2", "--batch-size",
-                                                             str(BATCH), "--calib-pt", calib])):
+                                                             str(BATCH), "--calib-pt", calib]),
+                ("bench_nms", bench_nms.main, ["--iters", "4", "--batch-size", str(BATCH)])):
             t0 = time.perf_counter()
             print(f"[{card}] {name}.main({argv}):", flush=True)
             tools[name] = fn(["--device", "cuda"] + argv)
@@ -944,19 +1044,7 @@ def main():
               f"detect_batch with host letterbox {BATCH / host_s:.1f} img/s")
 
     results["profile_bf16"] = profile_batch(lambda: inferer._run(batch), card)
-
-    thr = inferer.iou_thres
-    for _ in range(5):
-        cuda_nms.greedy_nms_mask(box_k, score_k, thr)
-    kernel_ms = float(np.median(cuda_ms(lambda: cuda_nms.greedy_nms_mask(box_k, score_k, thr), 100)))
-    plain_ms = float(np.median(cuda_ms(lambda: cuda_nms.greedy_nms_mask_plain(box_k, score_k, thr), 4)))
-    b = score_k.shape[0]
-    bytes_moved = b * k * (16 + 4 + 1)
-    ops = b * (k * (k - 1) // 2 * IOU_PAIR_OPS + k * AREA_OPS)
-    bound_ms = max(bytes_moved / HBM_BYTES_S, ops / FP32_OPS_S) * 1e3
-    bound_by = "bytes" if bytes_moved / HBM_BYTES_S > ops / FP32_OPS_S else "operations"
-    print(f"[{card}] greedy_nms B={b} K={k}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(CUDA events, median of 5 windows of 100 and 4 calls), bound {bound_ms:.5f} ms by {bound_by}")
+    nms = phase_nms_times(results, card, cuda_nms, box_k, score_k, inferer.iou_thres, pred, kw)
 
     # 6. int8 kernel vs plain; 7-8. the int8 main path and its times
     int8_err = phase_int8_kernels(cuda_conv, rng, dev)
@@ -969,12 +1057,16 @@ def main():
     mm_launches, mm_shapes = phase_dots_main(results, card, dev, batch, imgs, ctx8)
     mm_tot = phase_matmul_times(results, card, dev, rng, mm_shapes, ctx8["amax"], inferer.model)
 
+    nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
                 "replaces": "yololp_tpu/ops/pallas_nms.py:29",
-                "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "matches_plain": True},
+                "launches": launches, "max_abs_err": max_err, "ms": nms32["ms"],
+                "plain_ms": nms32["plain_ms"], "bound_ms": nms32["bound_ms"],
+                "bound_by": nms32["bound_by"], "library_ms": None, "matches_plain": True,
+                "device_ms": nms32["device_ms"], "kept": nms32["kept"],
+                "ms_b1": nms1["ms"], "device_ms_b1": nms1["device_ms"], "kept_b1": nms1["kept"],
+                "device_ms_in_batch": nms["in_batch_device_ms"]},
                {"name": "int8_conv", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/int8_conv.cu",
                 "replaces": "yololp_tpu/ops/pallas_conv.py:58",

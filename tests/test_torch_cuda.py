@@ -8,11 +8,13 @@ without the JAX-pinning conftest:
 
 The cases are chip_smoke.py's. greedy_nms: clustered boxes at the main
 path's B = 32, K = 512, a conf-gated zero tail, exact score ties, degenerate
-boxes, a 128-deep chain and K = 1024; the keep-mask must be equal, not
-close. int8_conv: every RepBlock chain geometry of yololps at 640 (N = 32),
-a 3x3/s2, 1x1 with O = 277 and 12, int8 without relu, extreme codes, the
-accumulator, C = 32 (K = 288) with M not a multiple of 128, a 3x3/s2 fp32
-exit at O = 12 and a C that is not a multiple of 16; equal to the bit.
+boxes, a 128-deep chain, K = 1024, B = 1 and 128, K = 1, 300 and 1000, every
+score 0 and a 512-deep chain across every band of rows; the keep-mask must
+be equal, not close (`-k nms` selects these). int8_conv: every RepBlock
+chain geometry of yololps at 640 (N = 32), a 3x3/s2, 1x1 with O = 277 and
+12, int8 without relu, extreme codes, the accumulator, C = 32 (K = 288)
+with M not a multiple of 128, a 3x3/s2 fp32 exit at O = 12 and a C that is
+not a multiple of 16; equal to the bit.
 mxu_matmul: the matmul probe's three shapes, ragged M, K and N, K = 288, a
 conv9dots tap at the main path's N = 32, and `matmul_nt` on a strided tap
 view of (O, 3, 3, C) weights; int8 equal, bf16 within 2 K 2**-24
@@ -28,7 +30,8 @@ from chip_smoke import (check_matmul, int8_case, int8_specs, mask_cases, matmul_
 from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
 
 CASES = ["clustered_B32_K512", "conf_gated_zero_tail", "exact_score_ties",
-         "degenerate_boxes", "chain_128_deep", "clustered_K1024"]
+         "degenerate_boxes", "chain_128_deep", "clustered_K1024", "B1_K512", "B128_K512", "K1",
+         "K300_zero_tail", "K1000", "all_scores_zero", "chain_512_every_band"]
 
 
 @pytest.fixture
@@ -41,7 +44,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
-def test_cuda_kernel_equals_plain(case, cuda_device):
+def test_greedy_nms_kernel_equals_plain(case, cuda_device):
     boxes, scores, thr = mask_cases(np.random.default_rng(1))[case]
     b, s = torch.from_numpy(boxes).to(cuda_device), torch.from_numpy(scores).to(cuda_device)
     before = cuda_nms.launches
@@ -52,7 +55,7 @@ def test_cuda_kernel_equals_plain(case, cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+def test_greedy_nms_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     boxes = torch.zeros(2, 8, 4, device=cuda_device)
     with pytest.raises(ValueError, match="limit"):
         cuda_nms.greedy_nms_mask(torch.zeros(1, 1025, 4, device=cuda_device),

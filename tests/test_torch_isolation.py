@@ -96,7 +96,7 @@ def test_int8_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("tool", ["probe_mxu_int8", "probe_pallas_conv", "profile_int8",
-                                  "probe_latency", "profile_sections"])
+                                  "probe_latency", "profile_sections", "bench_nms"])
 def test_measurement_tools_raise_without_a_gpu(tool, monkeypatch):
     import importlib
 

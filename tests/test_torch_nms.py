@@ -6,7 +6,9 @@ of the 8 task confidences, a stable descending sort in place of lax.top_k),
 so keep masks, order, counts and detections must be EQUAL, not close.
 
 The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py); on
-the CPU `greedy_nms_mask` runs its plain version, which is what these tests pin.
+the CPU `greedy_nms_mask` runs its plain version, which is what these tests pin,
+together with the plain mirrors of the kernel's two steps (the packed
+suppression words and the walk over kept rows).
 """
 
 import numpy as np
@@ -25,7 +27,6 @@ from yololp_tpu_torch.ops import nms as tnms
 torch.set_num_threads(2)
 
 rng = np.random.default_rng(23)
-
 
 
 def sorted_scores(b, k, zero_tail=0):
@@ -55,6 +56,7 @@ def mask_cases():
     clustered = np.stack([clustered_boxes(k) for _ in range(b)])
     tied = sorted_scores(b, k)
     tied[:, 40:120] = tied[:, 40:41]  # a run of exact ties, still sorted
+    k300 = np.stack([clustered_boxes(300) for _ in range(2)])
     return {
         "clustered": (clustered, sorted_scores(b, k), 0.45),
         "clustered_high_iou": (clustered, sorted_scores(b, k), 0.65),
@@ -62,6 +64,14 @@ def mask_cases():
         "ties": (clustered, tied, 0.45),
         "deep_chain": (chain_boxes(128)[None], np.linspace(1.0, 0.5, 128, dtype=np.float32)[None], 0.2),
         "degenerate": (degenerate(clustered), sorted_scores(b, k), 0.45),
+        # K not a multiple of 32 or 64: a ragged last word
+        "K300": (k300, sorted_scores(2, 300, zero_tail=100), 0.45),
+        "K1000": (clustered_boxes(1000)[None], sorted_scores(1, 1000), 0.45),
+        "K1": (clustered_boxes(2)[:, None], np.array([[0.7], [0.0]], np.float32), 0.45),
+        "all_scores_zero": (clustered, np.zeros((b, k), np.float32), 0.45),
+        # a chain through all 512 rows: it crosses every 64-row band and every
+        # block of the kernel's cluster
+        "band_chain": (chain_boxes(512)[None], np.linspace(1.0, 0.5, 512, dtype=np.float32)[None], 0.2),
     }
 
 
@@ -76,11 +86,44 @@ def test_plain_mask_equals_jax_greedy_mask(case):
         for i in range(len(boxes)):
             ref = numpy_greedy_nms(boxes[i], scores[i], thr) & (scores[i] > 0)
             np.testing.assert_array_equal(got[i].numpy(), ref)
-    if case == "deep_chain":
-        assert got.sum() == 64
+    chain_kept = {"deep_chain": 64, "band_chain": 256}
+    if case in chain_kept:
+        assert got.sum() == chain_kept[case]
 
 
-@pytest.mark.parametrize("case", ["clustered", "zero_tail", "deep_chain"])
+@pytest.mark.parametrize("case", sorted(mask_cases()))
+def test_words_and_walk_equal_plain_and_jax_mask(case):
+    """The kernel's design in plain PyTorch: packed upper-triangular words,
+    then the walk over kept rows, equal to the fixpoint and to JAX."""
+    boxes, scores, thr = mask_cases()[case]
+    b, k = scores.shape
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    words = cuda_nms.suppression_words_plain(tb, thr)
+    assert words.shape == (b, k, -(-k // 32)) and words.dtype == torch.int64
+    assert int(words.min()) >= 0 and int(words.max()) < 2 ** 32
+    got = cuda_nms.walk_kept_rows_plain(words, ts > 0)
+    assert got.dtype == torch.bool and got.shape == (b, k)
+    np.testing.assert_array_equal(got.numpy(), cuda_nms.greedy_nms_mask_plain(tb, ts, thr).numpy())
+    want = np.asarray(jnms.greedy_nms_mask(jnp.asarray(boxes), jnp.asarray(scores), thr))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_suppression_words_pack_the_upper_triangle():
+    boxes = torch.from_numpy(chain_boxes(40)[None])  # box i overlaps box i + 1 only
+    words = cuda_nms.suppression_words_plain(boxes, 0.2)[0]
+    assert words.shape == (40, 2)
+    for i in range(40):
+        j = i + 1
+        want = [0, 0]
+        if j < 40:
+            want[j >> 5] = 1 << (j & 31)
+        assert words[i].tolist() == want, i
+    # nothing at or left of the diagonal, even where the IoU is 1
+    same = torch.zeros(1, 3, 4) + torch.tensor([0.0, 0.0, 10.0, 10.0])
+    assert cuda_nms.suppression_words_plain(same, 0.5)[0, :, 0].tolist() == [0b110, 0b100, 0]
+
+
+@pytest.mark.parametrize("case", ["clustered", "zero_tail", "deep_chain", "K300"])
 def test_plain_mask_equals_pallas_kernel_in_interpret_mode(case):
     boxes, scores, thr = mask_cases()[case]
     want = np.asarray(pallas_greedy_nms_mask(jnp.asarray(boxes), jnp.asarray(scores), thr,
@@ -158,3 +201,28 @@ def test_kernel_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="cuda"):
         cuda_nms.greedy_nms_mask_cuda(boxes, torch.ones(2, 8), 0.45)
 
+
+
+def test_the_launcher_is_bound_once(monkeypatch):
+    """ctypes passes an unbound Python int as a 32-bit C int, which cuts a
+    device pointer: the launcher is bound before its first call, and only
+    then, not on every launch."""
+    import ctypes
+
+    loads = []
+
+    class Lib:
+        class greedy_nms_mask_launch:  # noqa: N801 (a ctypes function's stand-in)
+            argtypes = None
+            restype = ctypes.c_int
+
+    def load(name):
+        loads.append(name)
+        return Lib
+
+    monkeypatch.setattr(cuda_nms._build, "load", load)
+    monkeypatch.setattr(cuda_nms, "_FN", None)
+    fn = cuda_nms._launcher()
+    assert cuda_nms._launcher() is fn and loads == ["greedy_nms"]
+    assert fn.argtypes[:3] == [ctypes.c_void_p] * 3 and fn.argtypes[-1] is ctypes.c_void_p
+    assert fn.argtypes[5] is ctypes.c_float and fn.restype is ctypes.c_int

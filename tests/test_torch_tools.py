@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from yololp_tpu_torch.tools import (probe_latency, probe_mxu_int8, probe_pallas_conv,
+from yololp_tpu_torch.tools import (bench_nms, probe_latency, probe_mxu_int8, probe_pallas_conv,
                                    profile_int8, profile_sections)
 from yololp_tpu_torch.utils import profiler
 
@@ -115,3 +115,15 @@ def test_profile_sections(capsys, amax_json):
     want = [f"{c} {t}" for t in ("bf16", "int8") for c in cuts] + ["nms alone"]
     assert [r["section"] for r in out["rows"]] == want
     assert all(positive(r["ms_per_batch"], r["img_per_s"]) for r in out["rows"])
+
+
+def test_bench_nms(capsys):
+    bench_nms.main(["--device", "cpu", "--small"])
+    out = last_json(capsys.readouterr().out)
+    assert (out["device"], out["batch"], out["anchors"], out["pre_nms_topk"]) == ("cpu", 2, 1344, 512)
+    assert positive(out["topk_iters0_ms"], out["candidate_only_topk_ms"], out["greedy_nms_mask_ms"])
+    # the conf gate leaves a zero tail; suppression keeps at most the candidates
+    cand, kept = out["candidates_per_image"], out["kept_per_image"]
+    assert 0 < cand["min"] <= cand["max"] < 512
+    assert 0 < kept["min"] and kept["max"] <= cand["max"]
+    assert not any(key.startswith("approx") or "iters16" in key for key in out)

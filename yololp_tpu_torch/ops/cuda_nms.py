@@ -1,5 +1,5 @@
 """Greedy NMS keep-mask: the CUDA kernel csrc/greedy_nms.cu and its plain
-PyTorch version.
+PyTorch versions.
 
 `greedy_nms_mask` runs the kernel on a CUDA tensor and the plain version on a
 CPU tensor; on a CUDA tensor it launches the kernel or raises. `launches`
@@ -8,8 +8,15 @@ counts the kernel's launches.
 The plain version mirrors the JAX default, the fixpoint of
 yololp_tpu/ops/nms.py:44-79: keep_i = valid_i and no kept j < i with
 IoU(j, i) > thres, iterated to convergence. The recurrence has a unique
-solution, so the fixpoint is the exact sequential greedy answer, which the
-kernel computes with one serial walk.
+solution, so the fixpoint is the exact sequential greedy answer. It stays the
+kernel's oracle.
+
+The kernel computes the same answer in two steps, each mirrored here in
+plain PyTorch so the CPU tests can hold the design to the JAX package:
+`suppression_words_plain` packs the upper-triangular suppression test into
+32-bit words (what a thread-block cluster builds on the card), and
+`walk_kept_rows_plain` walks those words one kept row at a time, word by
+word (what one warp does).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 from yololp_tpu_torch.ops import _build
 from yololp_tpu_torch.ops.geometry import pairwise_iou
 
-MAX_K = 1024  # the kernel's bitmask holds ceil(K/32) <= 32 words a row
+MAX_K = 1024  # the kernel's walk holds ceil(K/32) <= 32 words, one a lane
 
 launches = 0
 
@@ -45,12 +52,69 @@ def greedy_nms_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.greedy_nms_mask_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def suppression_words_plain(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """boxes (B, K, 4) score-sorted xyxy -> (B, K, ceil(K/32)) int64 holding
+    32-bit words: bit c of word w in row i is set when j = 32w + c > i and
+    IoU(i, j) > thres. Words at or left of the diagonal are 0."""
+    b, k = boxes.shape[:2]
+    w = -(-k // 32)
+    idx = torch.arange(k, device=boxes.device)
+    sup = (pairwise_iou(boxes, boxes) > iou_thres) & (idx[:, None] < idx[None, :])
+    bits = torch.zeros((b, k, 32 * w), dtype=torch.int64, device=boxes.device)
+    bits[..., :k] = sup.long()
+    weights = 2 ** torch.arange(32, dtype=torch.int64, device=boxes.device)
+    return (bits.view(b, k, w, 32) * weights).sum(-1)
+
+
+def walk_kept_rows_plain(words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The kernel's walk over `suppression_words_plain` words (B, K, W) and
+    the valid mask (B, K): one step per kept box. List entry l plays lane l,
+    which holds keep-word l (the valid boxes, cleared as kept rows suppress
+    them). The walk goes word by word: the lowest bit over the lanes above
+    the current word is the first kept box i of the next word w that holds
+    one (every earlier kept row has been applied, so i is kept); inside
+    word w each next kept box is the lowest bit left in a copy of the word,
+    `cur`, after row i has cleared it. Returns bool keep (B, K)."""
+    b, k, w = words.shape
+    rows = words.tolist()
+    flags = valid.tolist()
+    keep = []
+    for n in range(b):
+        kw = [sum(1 << c for c in range(32) if 32 * l + c < k and flags[n][32 * l + c])
+              for l in range(w)]
+        word = -1
+        while True:
+            cand = [32 * l + (p & -p).bit_length() - 1 for l, p in enumerate(kw) if l > word and p]
+            if not cand:
+                break
+            i = min(cand)
+            word = i >> 5
+            cur = kw[word]
+            while True:
+                row = rows[n][i]
+                for l in range(word, w):
+                    kw[l] &= ~row[l]
+                cur &= (cur - 1) & ~row[word]
+                if not cur:
+                    break
+                i = 32 * word + (cur & -cur).bit_length() - 1
+        keep.append([bool(kw[j >> 5] >> (j & 31) & 1) for j in range(k)])
+    return torch.tensor(keep, dtype=torch.bool, device=words.device).view(b, k)
+
+
+_FN = None
+
+
+def _launcher():
+    """greedy_nms_mask_launch of the built library, bound once."""
+    global _FN
+    if _FN is None:
+        fn = _build.load("greedy_nms").greedy_nms_mask_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
 
 def _check(boxes: torch.Tensor, scores: torch.Tensor):
@@ -82,9 +146,8 @@ def greedy_nms_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
-    fn = _bind(_build.load("greedy_nms"))
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = fn(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
+    err = _launcher()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
              float(iou_thres), boxes.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")

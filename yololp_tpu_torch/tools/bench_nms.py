@@ -1,0 +1,133 @@
+"""NMS-stage bench (counterpart of tools/bench_nms.py).
+
+Times `non_max_suppression` end to end on realistic decoded predictions at
+serving shape (default B = 128, A = 8400 anchors at 640 px): ~1.5% of the
+anchors carry confident per-task scores, so the confidence gate leaves a
+zero tail in the K = 512 candidates of every image. Beside it: the candidate
+selection alone (gate, ranking score and the stable sort that takes the top
+K, with no gathers, suppression or compaction), and the greedy keep-mask
+alone on this traffic's candidates (the CUDA kernel csrc/greedy_nms.cu on
+the card, its plain version on the CPU), with the candidates and kept boxes
+per image, since the kernel's walk takes one step per kept box. On the card
+it also reads the kernel's own device time with torch.profiler
+(`greedy_nms_kernel_device_ms`; absent on the CPU).
+
+The JAX tool's other variants are not in the port and are not timed: the
+"approx" selector (lax.approx_max_k) and a fixed fixpoint bound
+(nms_iters=16) raise in ops/nms.py, so the `approx_*` and `*_iters16_ms`
+keys are absent.
+
+Protocol: utils/profiler.timed_scan (K chained steps in one timed call; each
+step shifts the decode's x centers in place by 1e-6 px times the step count,
+so the chain adds no pass over the whole decode). Prints one JSON object.
+
+    python -m yololp_tpu_torch.tools.bench_nms --device cuda
+    python -m yololp_tpu_torch.tools.bench_nms --device cpu --small
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from yololp_tpu_torch.utils.device import resolve_device
+from yololp_tpu_torch.utils.profiler import kernel_device_ms, timed_scan
+
+
+def decode_traffic(b: int, a: int, seed: int = 0) -> np.ndarray:
+    """(B, A, 290) decoded predictions, as the JAX tool makes them: boxes
+    spread over the frame, every anchor at obj 1, and per task one class at
+    0.02, or at U(0.5, 1) on the ~1.5% of anchors that are hot."""
+    rng = np.random.default_rng(seed)
+    pred = np.zeros((b, a, 290), np.float32)
+    pred[..., 0] = rng.uniform(40, 600, (b, a))
+    pred[..., 1] = rng.uniform(40, 600, (b, a))
+    pred[..., 2] = rng.uniform(20, 120, (b, a))
+    pred[..., 3] = rng.uniform(10, 60, (b, a))
+    pred[..., 4] = 1.0
+    hot = rng.random((b, a)) < 0.015
+    for s in [13, 44] + [68 + i * 37 for i in range(6)]:
+        cls = rng.integers(0, 8, (b, a))
+        pred[np.arange(b)[:, None], np.arange(a)[None, :], s + cls] = \
+            np.where(hot, rng.uniform(0.5, 1.0, (b, a)), 0.02)
+    return pred
+
+
+def _spread(counts: torch.Tensor) -> dict:
+    c = counts.double()
+    return {"min": int(c.min()), "mean": float(c.mean()), "max": int(c.max())}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("NMS stage bench (PyTorch/CUDA)")
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--anchors", type=int, default=8400)
+    p.add_argument("--iters", type=int, default=30)
+    p.add_argument("--conf-thres", type=float, default=0.4)
+    p.add_argument("--iou-thres", type=float, default=0.45)
+    p.add_argument("--pre-nms-topk", type=int, default=512)
+    p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    p.add_argument("--small", action="store_true",
+                   help="CPU smoke: batch 2, 1344 anchors (256 px), 2 steps (overrides those flags)")
+    args = p.parse_args(argv)
+    if args.small:
+        args.batch_size, args.anchors, args.iters = 2, 1344, 2
+    dev = resolve_device(args.device)
+
+    from yololp_tpu_torch.ops.cuda_nms import greedy_nms_mask
+    from yololp_tpu_torch.ops.nms import (_split_scores, _sum_in_order, non_max_suppression,
+                                          select_candidates)
+
+    b, a, steps = args.batch_size, args.anchors, args.iters
+    k = min(args.pre_nms_topk, a)
+    x = torch.from_numpy(decode_traffic(b, a)).to(dev)
+
+    def bench(fn, p0):
+        @torch.no_grad()
+        def prog(p, c0):
+            c, total = c0, 0
+            for _ in range(steps):
+                p[..., 0].add_(c * 1e-6)
+                out = fn(p)
+                total = total + sum(t.float().sum() * 1e-9 for t in out)
+                c = c + 1
+            return total
+
+        return timed_scan(prog, steps, p0, torch.zeros((), device=dev)) * 1e3
+
+    def nms(p_):
+        return non_max_suppression(p_, conf_thres=args.conf_thres, iou_thres=args.iou_thres,
+                                   max_det=300, pre_nms_topk=k)
+
+    def candidates(p_):
+        cls = p_[..., 13:] * p_[..., 4:5]
+        confs = torch.stack([t.amax(dim=-1) for t in _split_scores(cls)], -1)
+        score = _sum_in_order(confs, range(8)) / 8.0
+        gated = torch.where(score >= args.conf_thres, score, torch.zeros_like(score))
+        top, idx = torch.sort(gated, dim=1, descending=True, stable=True)
+        return top[:, :k], idx[:, :k]
+
+    box_k, score_k, _ = select_candidates(x, args.conf_thres, k)
+    keep = greedy_nms_mask(box_k, score_k, args.iou_thres)
+    res = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+           "batch": b, "anchors": a, "pre_nms_topk": k, "iters": steps,
+           "conf_thres": args.conf_thres, "iou_thres": args.iou_thres,
+           "candidates_per_image": _spread((score_k > 0).sum(1)),
+           "kept_per_image": _spread(keep.sum(1))}
+    res["topk_iters0_ms"] = bench(nms, x)
+    res["candidate_only_topk_ms"] = bench(candidates, x)
+    # the keep-mask alone: the chain shifts the candidates' boxes instead
+    res["greedy_nms_mask_ms"] = bench(lambda bx: (greedy_nms_mask(bx, score_k, args.iou_thres),),
+                                      box_k.clone())
+    if dev.type == "cuda":
+        res["greedy_nms_kernel_device_ms"] = kernel_device_ms(
+            lambda: greedy_nms_mask(box_k, score_k, args.iou_thres), "greedy_nms_kernel")
+    print(json.dumps(res))
+    return res
+
+
+if __name__ == "__main__":
+    main()

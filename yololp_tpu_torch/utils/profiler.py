@@ -87,6 +87,26 @@ def model_flops(fn, *example_args) -> dict:
     return out
 
 
+def kernel_device_ms(fn, name: str, calls: int = 10) -> float:
+    """Device milliseconds per call of `fn` spent in the CUDA kernels whose
+    name contains `name`, by torch.profiler over `calls` calls after one
+    warm call: the kernel's own time, without the host's launch gaps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    if us <= 0:
+        raise RuntimeError(f"the profiler saw no device time in a kernel named *{name}*")
+    return us / 1e3 / calls
+
+
 def fresh_operands(op):
     """Operands rebuilt as new tensors on their device, each tensor of
     ndim > 0 rolled by one along axis 0 (distribution unchanged)."""
