@@ -43,10 +43,12 @@ toolkit. Phases, each of which raises on failure:
      conv_impl="conv" in fp32 (TF32 off) on the card against the CPU port:
      every int8 module of the port on the CPU, fed the card's own input,
      gives the card's output bit for bit, and the two decodes differ by no
-     more than int8's own quantization noise on that image (a float conv,
-     the stem or an upsample, sums in another order on the card, which flips
-     a few codes; with random weights each flip spreads, so the decodes are
-     not held to a fixed bound);
+     more than int8's own quantization noise on that image. The /255 input
+     and every input quantize are computed alike on both (a multiply by an
+     fp32 reciprocal from the host, ops/division.py); what is left is a
+     float conv, the stem or an upsample, that sums in another order on the
+     card, which flips a few codes; with random weights each flip spreads,
+     so the decodes are not held to a fixed bound;
   8. int8 times: img/s at batch 32 beside phase 5's bf16, a profiler table
      of one int8 batch, and every distinct int8 conv launch of the main path
      timed alone (kernel, plain version, bound, and a cuDNN bf16 conv of the
@@ -71,7 +73,24 @@ toolkit. Phases, each of which raises on failure:
      probe's shapes (ms, rate, bound, plain version, and torch.matmul /
      torch._int_mm as the library's time), with tiles, stages, shared memory
      and ptxas registers; then each ported measurement tool's main() once at
-     small step counts and batch 32 (bench_nms too).
+     small step counts and batch 32 (bench_nms too);
+  12. the evaler on the card: 70 frames at 640x640 held in memory with 1-4
+     plate boxes each (labels padded to 32), fed as loader batches of 32 (the
+     tail of 6 padded by `Evaler.predict`), through `Evaler.predict` and
+     `Evaler.eval` with the bf16 deploy model and then the int8 pallas plan
+     on phase 7's calibration; each run's launch counts are set to 0 just
+     before and read just after; the detections and the metric list equal
+     those of the plain CPU NMS on the card's own decode of the same
+     frames; prints the metric list and `eval_speed()`;
+  13. the train graph of yololps (every parameter and BN statistic drawn
+     from the seed): forward, ATSS assignment, loss (giou, no DFL) and
+     backward. Parity at batch 2 in fp32 with TF32 off: the fg masks of the
+     card and the CPU equal (else each differing anchor's IoU is printed
+     beside its threshold), the 7 loss items and the total within rtol
+     1e-3, the gradients w.r.t. reg and cor within 1e-2 of their largest
+     magnitude; then ms per step by part, img/s and max_memory_allocated at
+     batch 32 under autocast(bfloat16) with fp32 parameters (no optimizer
+     step: the solver is not ported).
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -97,6 +116,13 @@ TOPK = 512  # the NMS's pre_nms_topk: the kernel's K on the main path
 # fp32 card-vs-CPU decode: cuDNN and the CPU library sum conv products in
 # other orders (and may pick Winograd), compounded over ~70 convs.
 FP32_RTOL, FP32_ATOL_PX, FP32_ATOL_SCORE = 2e-3, 0.1, 2e-3
+EVAL_FRAMES = 70  # phase 12: two full batches of 32 and a tail of 6
+TRAIN_PARITY_BATCH, TRAIN_STEPS = 2, 5
+# phase 13, card vs CPU in fp32: the loss items and total within this
+# relative difference, the gradients w.r.t. reg and cor within this fraction
+# of their largest magnitude (cuDNN and the CPU sum conv products in other
+# orders, and BN in training mode normalizes by the batch's own statistics)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-3, 1e-2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 op/s and
 # dense int8 tensor-core op/s
 HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
@@ -923,6 +949,242 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
     return tot
 
 
+def labelled_frames(rng, n, size, max_boxes=32):
+    """n RGB uint8 frames (n, size, size, 3) and their labels in memory: 1-4
+    plate-shaped boxes a frame, rows [pro, alp, ads0..5, cx, cy, w, h,
+    x1..y4] normalized, padded to max_boxes with a (n, max_boxes) mask."""
+    imgs = rng.integers(0, 256, (n, size, size, 3), np.uint8)
+    labels = np.zeros((n, max_boxes, 20), np.float32)
+    labels[..., :8] = -1
+    masks = np.zeros((n, max_boxes), np.float32)
+    for i in range(n):
+        k = int(rng.integers(1, 5))
+        w = rng.uniform(0.06, 0.3, k)
+        h = w * size / 3.78 / size
+        cxy = rng.uniform(0.2, 0.8, (k, 2))
+        x1, y1, x2, y2 = cxy[:, 0] - w / 2, cxy[:, 1] - h / 2, cxy[:, 0] + w / 2, cxy[:, 1] + h / 2
+        labels[i, :k, 0] = rng.integers(0, 31, k)
+        labels[i, :k, 1] = rng.integers(0, 24, k)
+        labels[i, :k, 2:8] = rng.integers(0, 37, (k, 6))
+        labels[i, :k, 8:12] = np.stack([cxy[:, 0], cxy[:, 1], w, h], -1)
+        labels[i, :k, 12:20] = np.stack([x1, y1, x1, y2, x2, y2, x2, y1], -1)
+        masks[i, :k] = 1
+    return imgs, labels, masks
+
+
+def loader_batches(imgs, labels, masks, batch):
+    """The loader's batches (images, labels, masks, paths, shapes), the last
+    one short."""
+    return [(imgs[b0:b0 + batch], labels[b0:b0 + batch], masks[b0:b0 + batch],
+             [f"frame{b0 + j:03d}" for j in range(len(imgs[b0:b0 + batch]))],
+             [None] * len(imgs[b0:b0 + batch])) for b0 in range(0, len(imgs), batch)]
+
+
+def eval_on_card(ev, run_fn, decode_module, loader, kernels):
+    """Evaler.predict + eval through `run_fn` with the launch counts of the
+    `kernels` modules set to 0 just before and read just after; then the
+    plain CPU NMS on the card's own decodes (a forward hook on
+    `decode_module` keeps them) must give the same detections and metric."""
+    from yololp_tpu_torch.ops.nms import non_max_suppression
+
+    decodes = []
+    hook = decode_module.register_forward_hook(lambda m, a, out: decodes.append(out.detach()))
+    try:
+        for k in kernels:
+            k.launches = 0
+        preds, targets = ev.predict(run_fn, loader)
+        torch.cuda.synchronize()
+        launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    finally:
+        hook.remove()
+    metric = ev.eval(preds, targets)
+    if len(decodes) != len(loader):
+        raise AssertionError(f"{len(decodes)} decodes for {len(loader)} batches")
+    cpu_preds = []
+    for (imgs, *_), pred in zip(loader, decodes):
+        det, valid, num = non_max_suppression(pred.float().cpu(), conf_thres=ev.conf_thres,
+                                              iou_thres=ev.iou_thres, max_det=ev.max_det)
+        cpu_preds += [det[j][valid[j]][: int(num[j])].numpy() for j in range(len(imgs))]
+    for i, (a, b) in enumerate(zip(preds, cpu_preds)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"image {i}: the card's eval detections != plain CPU NMS on its decode")
+    metric_cpu = ev.eval(cpu_preds, targets)
+    if metric != metric_cpu:
+        raise AssertionError(f"eval metric on the card {metric} != plain CPU NMS's {metric_cpu}")
+    # on random weights no detection meets a label, so every bucket is empty;
+    # each image's first two detections of positive size (random weights
+    # also decode inverted boxes), taken as its gts, fill the last one
+    own = []
+    for d in cpu_preds:
+        d = d[(d[:, 2] - d[:, 0] > 1) & (d[:, 3] - d[:, 1] > 1)][:2]
+        own.append(np.concatenate([d[:, 20:28], d[:, 0:4], d[:, 4:12]], 1))
+    metric_own = ev.eval(preds, own)
+    if metric_own != ev.eval(cpu_preds, own) or (sum(map(len, own)) and metric_own[5][-1] == -1):
+        raise AssertionError(f"eval metric on the card's own detections as gts: {metric_own}")
+    return metric, launches, preds, metric_own
+
+
+def phase_eval(results, card, dev, inferer, ctx8):
+    """12. Evaler.predict and Evaler.eval on the card: 70 in-memory frames
+    at 640 in loader batches of 32 (the tail of 6 padded), bf16 and then the
+    int8 pallas plan on phase 7's calibration."""
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.quant import int8_infer
+
+    imgs, labels, masks = labelled_frames(np.random.default_rng(SEED + 12), EVAL_FRAMES, IMG)
+    loader = loader_batches(imgs, labels, masks, BATCH)
+    ev = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=inferer.conf_thres, device=dev)
+    out = {}
+    runs = [("bf16", ev.make_infer_fn(inferer.model), inferer.model, (cuda_nms,))]
+    inferer8 = ctx8["inferer8"]
+    run8 = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, ctx8["amax"],
+                                         conf_thres=ev.conf_thres, iou_thres=ev.iou_thres,
+                                         max_det=ev.max_det, conv_impl="pallas", device=dev)
+    runs.append(("int8 pallas", run8, run8.int8_model, (cuda_nms, cuda_conv)))
+    for label, run_fn, module, kernels in runs:
+        ev.predict(run_fn, loader[:1])  # warm-up
+        ev.speed_result = np.zeros(4)
+        metric, launches, preds, metric_own = eval_on_card(ev, run_fn, module, loader, kernels)
+        if any(n < 1 for n in launches.values()):
+            raise AssertionError(f"eval ({label}) launched {launches}")
+        if len(preds) != EVAL_FRAMES or sum(map(len, preds)) == 0:
+            raise AssertionError(f"eval ({label}): {len(preds)} images, {sum(map(len, preds))} dets")
+        speed = ev.eval_speed()
+        print(f"eval ({label}), yololps {IMG}px, {EVAL_FRAMES} frames in batches of {BATCH} "
+              f"(tail {EVAL_FRAMES % BATCH} padded), conf_thres {ev.conf_thres:.6f}, iou_thres "
+              f"{ev.iou_thres}: launches {launches}, detections {sum(map(len, preds))}; metric == "
+              f"the plain CPU NMS's on the card's decode")
+        print(f"  metric [mAP, mAP50, mAP75, mAP50-95, recall, AP per bucket, recall per bucket]: "
+              f"{json.dumps(metric)}")
+        print(f"  metric with each image's first two detections as its gts (equal on the card "
+              f"and the plain CPU NMS): {json.dumps(metric_own)}")
+        print(f"[{card}] eval_speed ({label}) ms per image: {json.dumps(speed)}")
+        out[label] = dict(metric=metric, metric_own_gts=metric_own, launches=launches,
+                          speed=speed, detections=int(sum(map(len, preds))))
+    results["eval"] = out
+    return out
+
+
+def fg_report(labels, masks, lcfg, fg_a, fg_b, dev):
+    """Each anchor whose fg differs between the card and the CPU: its IoU
+    with every real gt beside that gt's ATSS threshold on both."""
+    from yololp_tpu_torch.assigners import atss
+    from yololp_tpu_torch.losses.loss import prepare_targets
+    from yololp_tpu_torch.ops.anchors import anchors_train
+    from yololp_tpu_torch.ops.geometry import pairwise_iou_mmdet
+
+    thr = {}
+    for d in (dev, torch.device("cpu")):
+        anchors, _, n_list, _ = anchors_train(lcfg.img_size, lcfg.strides, device=d)
+        _, _, _, gt_bboxes, _, mask_gt = prepare_targets(torch.from_numpy(labels),
+                                                         torch.from_numpy(masks), lcfg.img_size, d)
+        b, m = gt_bboxes.shape[:2]
+        overlaps = pairwise_iou_mmdet(gt_bboxes.reshape(-1, 4), anchors).reshape(b, m, -1)
+        dist, _ = atss._center_distances(gt_bboxes, anchors)
+        is_in, cand = atss._select_topk_candidates(dist, tuple(n_list), mask_gt, lcfg.topk)
+        thr[d.type] = (atss._threshold(is_in, cand, overlaps)[0].cpu(), overlaps.cpu(), mask_gt.cpu())
+    for bi, ai in torch.nonzero(fg_a != fg_b).tolist():
+        for mi in torch.nonzero(thr["cpu"][2][bi, :, 0]).flatten().tolist():
+            print(f"  fg differs at image {bi} anchor {ai}: gt {mi} IoU card "
+                  f"{float(thr['cuda'][1][bi, mi, ai])!r} cpu {float(thr['cpu'][1][bi, mi, ai])!r}, "
+                  f"threshold card {float(thr['cuda'][0][bi, mi, 0])!r} cpu {float(thr['cpu'][0][bi, mi, 0])!r}")
+
+
+def phase_train(results, card, dev, train_model, cfg):
+    """13. The train forward, ATSS assignment, loss and backward of yololps:
+    fp32 parity of the card with the CPU at batch 2, then times at batch 32
+    under autocast(bfloat16)."""
+    import copy
+
+    from yololp_tpu_torch.losses.loss import LossConfig, assign, compute_loss, loss_terms
+    from yololp_tpu_torch.ops.division import unit_pixels
+
+    head = cfg["model"]["head"]
+    lcfg = LossConfig(img_size=(IMG, IMG), strides=tuple(head["strides"]),
+                      use_dfl=bool(head["use_dfl"]), reg_max=int(head["reg_max"]),
+                      iou_type=head["iou_type"], assigner="atss")
+    imgs, labels, masks = labelled_frames(np.random.default_rng(SEED + 13), BATCH, IMG)
+
+    # parity: fp32 with TF32 off, batch 2, card against the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def step(model, d, n):
+        # contiguous NCHW: a channels_last backward at 640 corrupts the heap in
+        # the CPU build of torch 2.13 (an abort, found rehearsing this phase)
+        x = unit_pixels(torch.from_numpy(imgs[:n]).to(d).permute(0, 3, 1, 2),
+                        torch.float32).contiguous()
+        out = model(x)
+        out.reg.retain_grad()
+        out.cor.retain_grad()
+        total, items, fg = compute_loss(out, torch.from_numpy(labels[:n]),
+                                        torch.from_numpy(masks[:n]), lcfg, with_fg=True)
+        total.backward()
+        return [t.detach().cpu() for t in (total, items, fg, out.reg.grad, out.cor.grad)]
+
+    t0 = time.perf_counter()
+    got = step(copy.deepcopy(train_model).to(dev).train(), dev, TRAIN_PARITY_BATCH)
+    want = step(copy.deepcopy(train_model).train(), "cpu", TRAIN_PARITY_BATCH)
+    if not torch.equal(got[2], want[2]):
+        fg_report(labels[:TRAIN_PARITY_BATCH], masks[:TRAIN_PARITY_BATCH], lcfg, got[2], want[2], dev)
+        raise AssertionError("the fg masks of the card and the CPU differ")
+    items_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp(min=1e-12)).max())
+    total_err = float((got[0] - want[0]).abs() / want[0].abs())
+    grad_err = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got[3:], want[3:])]
+    print(f"train parity, yololps {IMG}px fp32 (TF32 off), batch {TRAIN_PARITY_BATCH}, card vs CPU "
+          f"({time.perf_counter() - t0:.1f} s): fg masks equal ({int(want[2].sum())} fg anchors); "
+          f"loss items {[round(float(v), 6) for v in want[1]]}, max rel diff {items_err:.3g}, total "
+          f"{float(want[0]):.6f} rel diff {total_err:.3g}; d total / d reg, d cor: max |diff| / max "
+          f"|grad| {grad_err[0]:.3g}, {grad_err[1]:.3g}")
+    if not (items_err <= TRAIN_LOSS_RTOL and total_err <= TRAIN_LOSS_RTOL
+            and max(grad_err) <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train parity beyond rtol {TRAIN_LOSS_RTOL} (loss) / "
+                             f"{TRAIN_GRAD_TOL} (grads)")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # times: forward, assign, loss, backward at batch 32 in bf16 (fp32 params)
+    model = copy.deepcopy(train_model).to(dev).to(memory_format=torch.channels_last).train()
+    x = unit_pixels(torch.from_numpy(imgs).to(dev).permute(0, 3, 1, 2), torch.float32)
+    lab, msk = torch.from_numpy(labels).to(dev), torch.from_numpy(masks).to(dev)
+
+    def one_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        model.zero_grad(set_to_none=True)
+        ev[0].record()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = model(x)
+        ev[1].record()
+        asg = assign(out, lab, msk, lcfg)
+        ev[2].record()
+        total, _ = loss_terms(out, asg, lcfg)
+        ev[3].record()
+        total.backward()
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    for _ in range(2):
+        one_step()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = np.array([one_step() for _ in range(TRAIN_STEPS)])
+    peak = torch.cuda.max_memory_allocated(dev)
+    parts = dict(zip(("forward", "assign", "loss", "backward"), np.median(steps, 0).tolist()))
+    step_ms = float(np.median(steps.sum(1)))
+    print(f"[{card}] train step (forward, ATSS assign, loss, backward; no optimizer), yololps "
+          f"{IMG}px batch {BATCH}, autocast bf16 with fp32 params: {step_ms:.3f} ms per step "
+          f"(median of {TRAIN_STEPS}, CUDA events), {BATCH * 1e3 / step_ms:.1f} img/s; ms by part "
+          f"{json.dumps({k: round(v, 3) for k, v in parts.items()})}; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB")
+    results["train"] = dict(parity=dict(items=want[1].tolist(), items_rel_err=items_err,
+                                        total_rel_err=total_err, grad_err=grad_err,
+                                        fg=int(want[2].sum())),
+                            step_ms=step_ms, img_s=BATCH * 1e3 / step_ms, parts_ms=parts,
+                            steps_ms=steps.tolist(), peak_bytes=peak)
+    return results["train"]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -1056,6 +1318,10 @@ def main():
     mm_err = phase_matmul_kernels(cuda_matmul, rng, dev)
     mm_launches, mm_shapes = phase_dots_main(results, card, dev, batch, imgs, ctx8)
     mm_tot = phase_matmul_times(results, card, dev, rng, mm_shapes, ctx8["amax"], inferer.model)
+
+    # 12. the evaler on the card; 13. the train forward, assignment, loss and backward
+    phase_eval(results, card, dev, inferer, ctx8)
+    phase_train(results, card, dev, train, cfg)
 
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",

@@ -18,7 +18,9 @@ not a multiple of 16; equal to the bit.
 mxu_matmul: the matmul probe's three shapes, ragged M, K and N, K = 288, a
 conv9dots tap at the main path's N = 32, and `matmul_nt` on a strided tap
 view of (O, 3, 3, C) weights; int8 equal, bf16 within 2 K 2**-24
-(|a| @ |b|) elementwise.
+(|a| @ |b|) elementwise. Then chip_smoke.py's phase 12 at a small size (the
+evaler on the card against the plain CPU NMS on its decode) and the loss on
+the card against the CPU.
 """
 
 import numpy as np
@@ -128,3 +130,67 @@ def test_mxu_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                               w[:, 1, 1, :])  # rows 360 bytes apart
     with pytest.raises(ValueError, match="16 bytes"):
         cuda_matmul.matmul_nt(a, b.t())
+
+
+@pytest.mark.cuda
+def test_eval_on_the_card_equals_the_plain_nms_on_its_decode(cuda_device):
+    """chip_smoke.py phase 12 at a small size: yololpn at 128 px, bf16, 10
+    labelled frames in loader batches of 4 (a padded tail of 2)."""
+    from chip_smoke import eval_on_card, labelled_frames, loader_batches, randomize_parameters
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.layers.fuse import fuse_model
+    from yololp_tpu_torch.models.yolo import build_model
+    from yololp_tpu_torch.utils.config import Config
+
+    cfg = Config.named("yololpn")
+    train = build_model(cfg, seed=0, device="cpu")
+    randomize_parameters(train, torch.Generator().manual_seed(0))
+    inf = Inferer(None, fuse_model(train).state_dict(), cfg, img_size=128, device=cuda_device)
+    loader = loader_batches(*labelled_frames(np.random.default_rng(0), 10, 128), 4)
+    ev = Evaler({}, batch_size=4, img_size=128, conf_thres=0.01, device=cuda_device)
+    metric, launches, preds, own = eval_on_card(ev, ev.make_infer_fn(inf.model), inf.model,
+                                                loader, (cuda_nms,))
+    assert launches == {"cuda_nms": 3} and len(preds) == 10 and len(metric) == 7
+    assert len(own) == 7
+
+
+@pytest.mark.cuda
+def test_loss_on_the_card_equals_the_cpu(cuda_device):
+    """compute_loss on the card against the port on the CPU, on the same
+    head outputs and padded targets: fg masks equal, items and total within
+    rtol 1e-5, gradients within 1e-5 of their largest magnitude (reductions
+    sum in other orders)."""
+    from yololp_tpu_torch.losses.loss import LossConfig, compute_loss
+    from yololp_tpu_torch.models.effidehead import HeadTrainOutput
+
+    rng = np.random.default_rng(0)
+    a = sum((128 // s) ** 2 for s in (8, 16, 32))
+    outs = [rng.uniform(0.001, 0.999, s).astype(np.float32)
+            for s in ((2, a, 31), (2, a, 24), (2, a, 6, 37))]
+    outs += [rng.uniform(-2, 6, (2, a, 4)).astype(np.float32),
+             rng.uniform(-4, 4, (2, a, 8)).astype(np.float32)]
+    labels = np.zeros((2, 32, 20), np.float32)
+    labels[..., :8] = -1
+    mask = np.zeros((2, 32), np.float32)
+    for b, n in enumerate((5, 2)):
+        for i in range(n):
+            cxy, wh = rng.uniform(0.2, 0.8, 2), rng.uniform(0.08, 0.4, 2)
+            (x1, y1), (x2, y2) = cxy - wh / 2, cxy + wh / 2
+            labels[b, i, :8] = rng.integers(0, 24, 8)
+            labels[b, i, 8:20] = [*cxy, *wh, x1, y1, x1, y2, x2, y2, x2, y1]
+            mask[b, i] = 1
+    res = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [torch.from_numpy(o).to(dev).requires_grad_(True) for o in outs]
+        total, items, fg = compute_loss(HeadTrainOutput(None, *leaves), torch.from_numpy(labels),
+                                        torch.from_numpy(mask), LossConfig(img_size=(128, 128)),
+                                        with_fg=True)
+        total.backward()
+        res[str(dev)] = [t.detach().cpu() for t in [total, items, fg] + [x.grad for x in leaves]]
+    cpu, card = res["cpu"], res[str(cuda_device)]
+    assert torch.equal(card[2], cpu[2]) and cpu[2].sum() > 0
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(card[1], cpu[1], rtol=1e-5, atol=1e-7)
+    for g, w in zip(card[3:], cpu[3:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * float(w.abs().max()))

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import conftest  # noqa: F401  (forces the JAX cpu backend)
@@ -173,8 +174,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 # ---------------- the whole int8 model ----------------
 
 STRICT_SCORE, STRICT_PX = 1e-3, 0.05
-# where a rounding tie flips an int8 code between the FMA-contracted JAX
-# epilogue and the port, the flip propagates: tests/test_int8.py:106-112
+# The reference is the jitted int8_apply, with the weights and the amax as
+# trace-time constants (as make_int8_infer_fn runs it): its input quantizes
+# multiply by the reciprocal scale, as the port does (ops/division.py). What
+# is left between the two is XLA's FMA contraction of the epilogue
+# `acc * a + b`, which can flip a rounding tie of an int8 code, and the flip
+# propagates (tests/test_int8.py:106-112). This allowance is for that alone.
 FLIP_SCORE, FLIP_PX = 0.05, 2.0
 
 
@@ -191,8 +196,9 @@ def int8_setup():
 @pytest.mark.parametrize("stage_handoffs", [True, False])
 def test_int8_apply_matches_jax(int8_setup, conv_impl, stage_handoffs, monkeypatch):
     jmodel, fused, tmodel, amax, jtable, ttable, x = int8_setup
-    want = np.asarray(jint8.int8_apply(jmodel, fused, jnp.asarray(x), amax, jtable, train=False,
-                                       conv_impl=conv_impl, stage_handoffs=stage_handoffs))
+    want = np.asarray(jax.jit(lambda v: jint8.int8_apply(
+        jmodel, fused, v, amax, jtable, train=False, conv_impl=conv_impl,
+        stage_handoffs=stage_handoffs))(jnp.asarray(x)))
     links = []
     real = cuda_conv.run_chain
     monkeypatch.setattr(cuda_conv, "run_chain",

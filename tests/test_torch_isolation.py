@@ -14,8 +14,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "yololp_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "yololp_tpu"}
-# cv2 and msgpack are absent on the machine with the card: imported lazily only
-LAZY = {"cv2", "msgpack"}
+# cv2, msgpack and yaml are absent on the machine with the card (PIL may be):
+# imported lazily only
+LAZY = {"cv2", "msgpack", "yaml", "PIL"}
 
 
 def port_files():
@@ -118,3 +119,39 @@ def test_matmul_and_dots_route_raise_without_a_gpu(monkeypatch):
     x = torch.ones(1, 3, 3, 8, dtype=torch.int8)
     acc = conv3x3_as_dots(x, torch.ones(3, 3, 8, 2, dtype=torch.int8))
     assert acc.device.type == "cpu" and int(acc[0, 1, 1, 0]) == 72
+
+
+def test_eval_and_train_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    from yololp_tpu_torch.core.evaler import Evaler, run_eval
+    from yololp_tpu_torch.models.yolo import build_model
+    from yololp_tpu_torch.tools.eval import main
+    from yololp_tpu_torch.utils.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Evaler({"val": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_eval(None, None, {"val": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--synthetic-data", str(tmp_path), "--conf-file", "yololpn"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(Config.named("yololpn"))
+    # the CPU is taken only when asked for
+    assert Evaler({"val": str(tmp_path)}, device="cpu").device.type == "cpu"
+
+
+def test_the_loss_stays_on_the_cpu_for_cpu_inputs():
+    """The loss builds its anchors on the device of the head outputs: a CPU
+    call needs no card."""
+    from yololp_tpu_torch.losses.loss import LossConfig, compute_loss
+    from yololp_tpu_torch.models.effidehead import HeadTrainOutput
+
+    a = sum((64 // s) ** 2 for s in (8, 16, 32))
+    out = HeadTrainOutput(None, torch.full((1, a, 31), 0.5), torch.full((1, a, 24), 0.5),
+                          torch.full((1, a, 6, 37), 0.5), torch.ones(1, a, 4), torch.ones(1, a, 8))
+    labels = torch.zeros(1, 2, 20)
+    labels[..., :8] = -1
+    labels[0, 0] = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8, .5, .5, .3, .2] + [.4] * 8)
+    total, items = compute_loss(out, labels, torch.tensor([[1.0, 0.0]]),
+                                LossConfig(img_size=(64, 64)))
+    assert total.device.type == "cpu" and items.shape == (7,) and torch.isfinite(total)

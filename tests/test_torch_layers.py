@@ -184,7 +184,15 @@ def test_get_block_only_repvgg():
 
 
 def test_detect_refuses_train_mode():
-    tm = TDetect((8, 16, 24), use_dfl=False, reg_max=0)
-    with pytest.raises(NotImplementedError):
+    """The train mode of the head is ported (it returns HeadTrainOutput); in
+    train mode it refuses a batch that leaves its BatchNorm one value per
+    channel, which has no batch statistics."""
+    from yololp_tpu_torch.models.effidehead import HeadTrainOutput
+
+    tm = TDetect((8, 16, 24), use_dfl=False, reg_max=0).train()
+    with pytest.raises(ValueError, match="more than 1 value per channel"):
         tm([torch.zeros(1, 8, 4, 4), torch.zeros(1, 16, 2, 2), torch.zeros(1, 24, 1, 1)])
+    out = tm([torch.rand(2, 8, 4, 4), torch.rand(2, 16, 2, 2), torch.rand(2, 24, 1, 1)])
+    assert isinstance(out, HeadTrainOutput) and out.ads.shape == (2, 21, 6, 37)
+    assert out.reg.shape == (2, 21, 4) and [f.shape[1] for f in out.feats] == [8, 16, 24]
 

@@ -71,23 +71,54 @@ def test_calibrate_max_matches_jax():
         np.testing.assert_allclose(got[p], want[p], rtol=1e-4, err_msg=p)
 
 
+def _jax_conv_inputs(jmodel, fused, images_u8):
+    """|input| of every calibrated conv of the jitted JAX forward (fp32)."""
+    from flax import linen as fnn
+
+    def forward(x):
+        seen = {}
+
+        def interceptor(next_fun, args, kwargs, context):
+            if jq._is_quantizable(context):
+                path = jq._module_path(context)
+                if not jq._skip(path, jq.DEFAULT_SKIP_SUBSTRINGS):
+                    seen[path] = jnp.abs(args[0].astype(jnp.float32))
+            return next_fun(*args, **kwargs)
+
+        with fnn.intercept_methods(interceptor):
+            jmodel.apply(fused, x, train=False)
+        return seen
+
+    x = jax.jit(lambda u: u.astype(jnp.float32) / jnp.asarray(255.0, jnp.float32))(images_u8)
+    return jax.device_get(jax.jit(forward)(x))
+
+
 def test_histogram_stats_match_jax():
-    """Pass-2 histograms on the bins fixed by the JAX max pass: the same
-    totals, and at most 0.1% of all values (1% of any one conv's) in another
-    bin (an fp32 difference can move a value across a bin edge)."""
+    """Pass-2 histograms on the bins fixed by the JAX max pass. The binning
+    is exact: the port's `histogram` of the JAX package's own conv inputs
+    equals the jitted JAX histogram of every conv at tolerance 0. On the
+    port's own conv inputs the totals are equal, and at most 1e-4 of all
+    values (0.5% of any one conv's) sit in another bin: the two frameworks
+    sum conv products in other orders, and an fp32 difference can move a
+    value across a bin edge."""
     jmodel, fused, tmodel = deploy_pair()
     amax = jax_amax()
     want = jax.device_get(jq.make_calib_fn(jmodel, fused, mode="histogram",
                                            amax_by_path=amax)(jnp.asarray(frames(7))))
+    inputs = _jax_conv_inputs(jmodel, fused, jnp.asarray(frames(7)))
+    assert set(inputs) == set(want)
+    for p, a in inputs.items():
+        np.testing.assert_array_equal(tq.histogram(torch.from_numpy(np.array(a)), amax[p]).numpy(),
+                                      np.asarray(want[p], np.float64), err_msg=p)
     got = tq.make_calib_fn(tmodel, mode="histogram", amax_by_path=amax)(frames(7))
     assert set(got) == set(want)
     moved = total = 0.0
     for p in want:
         w, g = np.asarray(want[p], np.float64), np.asarray(got[p], np.float64)
         assert g.sum() == w.sum(), p
-        assert np.abs(g - w).sum() / 2 <= 1e-2 * w.sum(), p
+        assert np.abs(g - w).sum() / 2 <= 5e-3 * w.sum(), p
         moved, total = moved + np.abs(g - w).sum() / 2, total + w.sum()
-    assert moved <= 1e-3 * total, (moved, total)
+    assert moved <= 1e-4 * total, (moved, total)
 
 
 @pytest.mark.parametrize("method", ["percentile", "entropy", "mse"])
@@ -112,13 +143,17 @@ def test_save_and_load_amax_cross_packages(tmp_path):
 
 
 def test_fake_quant_and_quantize_weights_equal_jax():
+    """Against the jitted JAX functions, as the package runs them:
+    `quantized_apply`'s constant amax, and `quantize_weights` under jit (the
+    QAT train step) with its traced per-channel amax (ops/division.py)."""
     x = np.random.default_rng(4).standard_normal((4, 33)).astype(np.float32) * 3
-    want = np.asarray(jq.fake_quant(jnp.asarray(x), jnp.float32(2.5)))
+    want = np.asarray(jax.jit(lambda v: jq.fake_quant(v, jnp.asarray(2.5, jnp.float32)))(
+        jnp.asarray(x)))
     np.testing.assert_array_equal(tq.fake_quant(torch.from_numpy(x), 2.5).numpy(), want)
 
     _, fused, tmodel = deploy_pair()
     want_sd = jax_to_state_dict({"params": jax.tree_util.tree_map(
-        np.asarray, jq.quantize_weights(fused["params"]))})
+        np.asarray, jax.jit(jq.quantize_weights)(fused["params"]))})
     got_sd = tq.quantize_weights(tmodel).state_dict()
     for k, v in want_sd.items():
         np.testing.assert_array_equal(got_sd[k].numpy(), v.numpy(), err_msg=k)

@@ -5,9 +5,11 @@ NHWC batch -> /255 -> fused RepVGG forward (EfficientRep + RepBiFPANNeck + LP
 Detect) -> 290-column decode -> NMS whose greedy keep-mask runs in a
 hand-written CUDA kernel (csrc/greedy_nms.cu). True-int8 inference
 (quant/) runs every calibrated conv in a second one (csrc/int8_conv.cu).
+The evaler (core/evaler.py, tools/eval.py) scores a checkpoint with the LP
+metric; losses/ and assigners/ hold the training loss with ATSS and TAL.
 
-The package imports torch, numpy and the standard library only; cv2 and
-msgpack are imported inside the functions that need them. Entry points take
+The package imports torch, numpy and the standard library only; cv2, yaml,
+PIL and msgpack are imported inside the functions that need them. Entry points take
 an explicit `device`, default to "cuda" and raise when no GPU is present
 unless the caller asks for "cpu".
 """

@@ -25,11 +25,21 @@ from yololp_tpu_torch.data import vocab as V
 from yololp_tpu_torch.data.images import LoadData, check_img_size, letterbox, rescale_dets
 from yololp_tpu_torch.layers.fuse import fuse_model
 from yololp_tpu_torch.models.yolo import Model, build_model
+from yololp_tpu_torch.ops.division import unit_pixels
 from yololp_tpu_torch.ops.nms import non_max_suppression
 from yololp_tpu_torch.utils.checkpoint import load_inference_variables
 from yololp_tpu_torch.utils.config import Config
 from yololp_tpu_torch.utils.convert import load_state_dict_strict
 from yololp_tpu_torch.utils.device import resolve_device
+
+
+@torch.inference_mode()
+def deploy_decode(model, images_u8, device, dtype) -> torch.Tensor:
+    """(N, H, W, 3) uint8 -> the (N, A, 290) fp32 decode of the deploy
+    `model` on `device`: /255 in `dtype` (as the jitted JAX program divides,
+    ops/division.py), then the forward on a channels_last NCHW view."""
+    x = torch.as_tensor(images_u8).to(device, non_blocking=True)
+    return model(unit_pixels(x.permute(0, 3, 1, 2), dtype))
 
 
 class CalcFPS:
@@ -90,12 +100,9 @@ class Inferer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
     def predict(self, images_u8) -> torch.Tensor:
         """(N, H, W, 3) uint8 -> the (N, A, 290) fp32 decode on the device."""
-        x = torch.as_tensor(images_u8).to(self.device, non_blocking=True)
-        x = x.permute(0, 3, 1, 2).to(self.dtype) / 255.0  # NCHW view, channels_last
-        return self.model(x)
+        return deploy_decode(self.model, images_u8, self.device, self.dtype)
 
     @torch.inference_mode()
     def _run(self, images_u8):

@@ -18,9 +18,11 @@ IMG_FORMATS = ["bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo"]
 VID_FORMATS = ["mp4", "mov", "avi", "mkv"]
 
 
-def letterbox(im, new_shape=(640, 640), color=114, auto=True, scaleup=True, stride=32):
+def letterbox(im, new_shape=(640, 640), color=114, auto=True, scaleup=True, stride=32,
+              return_int=False):
     """Resize + pad to new_shape keeping aspect ratio. The border is
-    constant `color` on every channel."""
+    constant `color` on every channel. Returns (image, ratio, pad) with pad
+    the float (dw, dh), or with return_int the integer (left, top)."""
     shape = im.shape[:2]
     if isinstance(new_shape, int):
         new_shape = (new_shape, new_shape)
@@ -46,13 +48,15 @@ def letterbox(im, new_shape=(640, 640), color=114, auto=True, scaleup=True, stri
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
     pad = ((top, bottom), (left, right)) + ((0, 0),) * (im.ndim - 2)
     im = np.pad(im, pad, mode="constant", constant_values=color)
+    if return_int:
+        return im, r, (left, top)
     return im, r, (dw, dh)
 
 
-def check_img_size(img_size, s=32):
-    """Round img_size up to a multiple of stride s."""
+def check_img_size(img_size, s=32, floor=0):
+    """Round img_size up to a multiple of stride s, and to at least `floor`."""
     def make_div(x):
-        return int(math.ceil(x / s) * s)
+        return max(int(math.ceil(x / s) * s), floor)
 
     if isinstance(img_size, int):
         new = make_div(img_size)

@@ -1,4 +1,5 @@
-"""Plate-string vocabularies (copy of yololp_tpu/data/vocab.py).
+"""Plate-string vocabularies and the dataset yaml (copy of
+yololp_tpu/data/vocab.py).
 
 npro=31 province glyphs, nalp=24 letters (no I/O), nads=37 characters
 (letters + digits + 警/学 + 'O' used as the 8-slot padding class).
@@ -27,3 +28,18 @@ def plate_string(pro_id: int, alp_id: int, ads_ids) -> str:
     for a in ads_ids:
         s += ADS_NAMES[int(a)]
     return s
+
+
+def load_dataset_yaml(path: str) -> dict:
+    """Load a dataset yaml (train/val/test paths + vocab overrides)."""
+    import yaml
+
+    with open(path) as f:
+        data = yaml.safe_load(f)
+    data.setdefault("npro", NPRO)
+    data.setdefault("nalp", NALP)
+    data.setdefault("nads", NADS)
+    data.setdefault("names", PRO_NAMES)
+    data.setdefault("alps", ALP_NAMES)
+    data.setdefault("ads", ADS_NAMES)
+    return data

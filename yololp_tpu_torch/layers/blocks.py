@@ -29,8 +29,26 @@ BN_MOMENTUM = 0.03
 _ACTS = {"relu": nn.ReLU, "silu": nn.SiLU, None: nn.Identity}
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose training step updates the running statistics as flax
+    does: with the biased batch variance (torch's own update uses the
+    unbiased one), as `0.97 * running + (1 - 0.97) * batch`. The output is
+    torch's (the batch is normalized by its biased variance in both)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean * (1.0 - keep))
+            self.running_var.mul_(keep).add_(var * (1.0 - keep))
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBNAct(nn.Module):

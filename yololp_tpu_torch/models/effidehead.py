@@ -1,5 +1,5 @@
-"""LP Efficient Decoupled Head in NCHW, eval decode only (mirrors
-yololp_tpu/models/effidehead.py).
+"""LP Efficient Decoupled Head in NCHW: the eval decode and the train output
+(mirrors yololp_tpu/models/effidehead.py).
 
 Per level: a 1x1 stem, a 3x3 cls conv feeding ONE fused 1x1 classification
 pred with npro+nalp+6*nads channels ('cls_pred{i}'), and a 3x3 reg conv
@@ -8,14 +8,15 @@ zero with the prior-prob cls bias and a reg bias of 1.0.
 
 The eval output is the 290-column tensor
 [bbox_xywh(4), obj(=1), corners(8), pro(31), alp(24), ads(6*37)] per anchor.
-Maps are permuted to NHWC before flattening, so anchors run H-then-W as in
-the JAX head and ops/anchors.py; the sigmoid and the decode run in fp32.
+In training mode the head returns `HeadTrainOutput` instead. Maps are
+permuted to NHWC before flattening, so anchors run H-then-W as in the JAX
+head and ops/anchors.py; the sigmoid and the decode run in fp32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, NamedTuple, Sequence
 
 import torch
 from torch import nn
@@ -27,8 +28,21 @@ from yololp_tpu_torch.ops.geometry import dist2bbox, dist2cor
 PRIOR_PROB = 1e-2
 
 
+class HeadTrainOutput(NamedTuple):
+    """The head's train output (the JAX package's HeadTrainOutput). `feats`
+    are the per-level stem outputs, NCHW here (the JAX ones are NHWC)."""
+
+    feats: List[torch.Tensor]  # per level (B, C, H, W)
+    pro: torch.Tensor          # (B, A, npro) sigmoided, fp32
+    alp: torch.Tensor          # (B, A, nalp) sigmoided, fp32
+    ads: torch.Tensor          # (B, A, 6, nads) sigmoided, fp32
+    reg: torch.Tensor          # (B, A, 4 * (reg_max + 1)) raw, fp32
+    cor: torch.Tensor          # (B, A, 8) raw corner offsets, fp32
+
+
 class Detect(nn.Module):
-    """Anchor-free LP detection head over 3 FPN levels (eval decode)."""
+    """Anchor-free LP detection head over 3 FPN levels: the eval decode, or
+    in training mode the HeadTrainOutput."""
 
     def __init__(self, in_channels: Sequence[int], npro: int = 31, nalp: int = 24,
                  nads: int = 37, num_layers: int = 3, use_dfl: bool = True,
@@ -62,12 +76,10 @@ class Detect(nn.Module):
             reg_pred.bias.fill_(1.0)
 
     def forward(self, xs):
-        if self.training:
-            raise NotImplementedError(
-                "the train-mode head output is not ported yet; call .eval()")
-        cls_flat, reg_flat, cor_flat = [], [], []
+        cls_flat, reg_flat, cor_flat, feats = [], [], [], []
         for i, x in enumerate(xs):
             stem = getattr(self, f"stem{i}")(x)
+            feats.append(stem)
             cls_out = getattr(self, f"cls_pred{i}")(getattr(self, f"cls_conv{i}")(stem))
             regcor = getattr(self, f"reg_pred{i}")(getattr(self, f"reg_conv{i}")(stem))
             b = x.shape[0]
@@ -79,6 +91,13 @@ class Detect(nn.Module):
         cls_scores = torch.sigmoid(torch.cat(cls_flat, 1).float())
         reg_distri = torch.cat(reg_flat, 1).float()
         cor_distri = torch.cat(cor_flat, 1).float()
+        if self.training:
+            b, a = cls_scores.shape[:2]
+            npa = self.npro + self.nalp
+            return HeadTrainOutput(feats, cls_scores[..., :self.npro],
+                                   cls_scores[..., self.npro:npa],
+                                   cls_scores[..., npa:].reshape(b, a, 6, self.nads),
+                                   reg_distri, cor_distri)
 
         shapes = [(x.shape[2], x.shape[3]) for x in xs]
         anchor_points, stride_tensor = anchor_points_from_shapes(

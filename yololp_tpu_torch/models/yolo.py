@@ -3,7 +3,8 @@ yololp_tpu/models/yolo.py:45-120).
 
 Repeats scale by depth_multiple (round(i*d), min 1, for i>1) and channels by
 width_multiple with make_divisible(x, 8). Input is NCHW float in [0, 1];
-output in eval mode is the (B, A, 290) decode.
+output in eval mode is the (B, A, 290) decode, in training mode the head's
+HeadTrainOutput (models/effidehead.py).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ def _lookup(registry, kind, name):
 
 
 class Model(nn.Module):
-    """backbone -> neck -> head; eval forward returns (B, A, 290)."""
+    """backbone -> neck -> head; the eval forward returns (B, A, 290), the
+    train forward (`.train()`) a HeadTrainOutput."""
 
     def __init__(self, config, npro: int = 31, nalp: int = 24, nads: int = 37,
                  deploy: bool = False):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from yololp_tpu_torch.ops import _build
 from yololp_tpu_torch.ops.cuda_matmul import rows16
+from yololp_tpu_torch.ops.division import reciprocal
 
 launches = 0
 
@@ -196,22 +197,31 @@ def conv3x3_int8_fused(x_q, w9, a, b, relu: bool = True,
                      1, relu, out_dtype)
 
 
-def quantize_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """clip(round_half_even(x / scale), -128, 127) as int8, in fp32."""
-    return torch.round(x.float() / scale).clamp(-128.0, 127.0).to(torch.int8)
+def quantize_codes(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
+    """clip(round_half_even(x / scale), -128, 127) as int8, in fp32, with the
+    division as the jitted JAX package computes it (its scale is a trace-time
+    constant): a multiply by `inv_scale`, from `inv_host_scale`."""
+    return torch.round(x.float() * inv_scale).clamp(-128.0, 127.0).to(torch.int8)
 
 
 def host_scale(amax: float) -> torch.Tensor:
-    """amax / 127 in fp32 (the JAX package's `jnp.float32(amax) / 127.0`),
-    computed on the host: CUDA divides a tensor by a Python scalar as a
-    multiply by its reciprocal, which can differ in the last bit, and one
-    bit of a scale can flip a code."""
+    """amax / 127 in fp32 (the JAX package's `jnp.float32(amax) / 127.0`, a
+    true division: eager, or folded as a constant under jit), computed on the
+    host: CUDA divides a tensor by a Python scalar as a multiply by its
+    reciprocal, which can differ in the last bit, and one bit of a scale can
+    flip a code."""
     return torch.tensor(amax, dtype=torch.float32) / 127.0
+
+
+def inv_host_scale(amax: float) -> float:
+    """fp32(1 / host_scale(amax)): the reciprocal XLA multiplies by where the
+    jitted JAX package quantizes `x / scale` (ops/division.py)."""
+    return reciprocal(float(host_scale(amax)))
 
 
 def chain_links(sub_paths: Sequence[str], amax_by_path: Dict[str, float], weight_table,
                 out_dtype: torch.dtype, exit_amax=None):
-    """(entry scale, [(w_q, a, b, out_dtype)] per link) of a deploy RepBlock
+    """(entry inverse scale, [(w_q, a, b, out_dtype)] per link) of a deploy RepBlock
     chain. Interior links requantize to the next link's scale, relu folded
     into the clip: a = s_i * w_scale / s_next, b = bias / s_next. The last
     link dequantizes (a = s_i * w_scale, b = bias, relu, `out_dtype`) or,
@@ -230,13 +240,13 @@ def chain_links(sub_paths: Sequence[str], amax_by_path: Dict[str, float], weight
         else:
             a, b, dt = scales[i] * w_scale, bias, out_dtype
         links.append((w_q, a.to(dev), b.to(dev), dt))
-    return scales[0].to(weight_table[sub_paths[0]][0].device), links
+    return inv_host_scale(amax_by_path[sub_paths[0]]), links
 
 
-def run_chain(x: torch.Tensor, entry_scale: torch.Tensor, links) -> torch.Tensor:
+def run_chain(x: torch.Tensor, entry_inv_scale: float, links) -> torch.Tensor:
     """Run chain_links' links on NHWC `x`: quantize at entry (an int8 `x` is
     taken as codes at the entry scale), then each link with relu."""
-    q = x.contiguous() if x.dtype == torch.int8 else quantize_codes(x, entry_scale)
+    q = x.contiguous() if x.dtype == torch.int8 else quantize_codes(x, entry_inv_scale)
     for w_q, a, b, dt in links:
         q = int8_conv(q, w_q, a, b, 1, True, dt)
     return q

@@ -232,21 +232,21 @@ def _int8_conv(a_q, w_q, stride: int, padding: int, conv_impl: str = "conv") -> 
     return cuda_conv.int8_conv(a_q, w_q, zeros, zeros, stride, False, torch.int32)
 
 
-def _dots_chain(x: torch.Tensor, entry_scale: torch.Tensor, links) -> torch.Tensor:
+def _dots_chain(x: torch.Tensor, entry_inv_scale: float, links) -> torch.Tensor:
     """cuda_conv.run_chain with each link's conv as matmuls: the int32
     accumulator by `conv3x3_as_dots`, then the kernel's epilogue in plain
     PyTorch (cuda_conv.epilogue_plain, equal to the fused one bit for bit)."""
-    q = x.contiguous() if x.dtype == torch.int8 else cuda_conv.quantize_codes(x, entry_scale)
+    q = x.contiguous() if x.dtype == torch.int8 else cuda_conv.quantize_codes(x, entry_inv_scale)
     for w_q, a, b, dt in links:
         q = cuda_conv.epilogue_plain(_int8_conv(q, w_q, 1, 1, "dots"), a, b, True, dt)
     return q
 
 
-def _run_links(x, entry_scale, links, conv_impl: str):
+def _run_links(x, entry_inv_scale, links, conv_impl: str):
     """A chain's links on NHWC `x`, by the route conv_impl names."""
     if conv_impl == "dots":
-        return _dots_chain(x, entry_scale, links)
-    return cuda_conv.run_chain(x, entry_scale, links)
+        return _dots_chain(x, entry_inv_scale, links)
+    return cuda_conv.run_chain(x, entry_inv_scale, links)
 
 
 def _chain_repblock(x, sub_paths, amax_by_path, weight_table, out_dtype=None,
@@ -306,7 +306,8 @@ class Int8Conv2d(nn.Module):
         else:
             a, b = x_scale * w_scale, bias
         self.register_buffer("w_q", w_q)
-        self.register_buffer("x_scale", x_scale.to(dev))
+        # the input quantize multiplies by fp32(1 / x_scale), as jax.jit does
+        self.x_inv_scale = cuda_conv.inv_host_scale(amax)
         self.register_buffer("a", a.contiguous().to(dev))
         self.register_buffer("b", b.contiguous().to(dev))
 
@@ -318,7 +319,7 @@ class Int8Conv2d(nn.Module):
         return self.model_dtype if x.dtype == torch.int8 else x.dtype
 
     def forward(self, x):
-        a_q = x if x.dtype == torch.int8 else cuda_conv.quantize_codes(x, self.x_scale)
+        a_q = x if x.dtype == torch.int8 else cuda_conv.quantize_codes(x, self.x_inv_scale)
         if self.conv_impl == "dots":
             acc = _int8_conv(_nhwc(a_q), self.w_q, self.stride, self.w_q.shape[1] // 2, "dots")
             y = cuda_conv.epilogue_plain(acc, self.a, self.b, self.handoff, self.out_dtype(x))

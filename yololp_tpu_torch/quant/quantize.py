@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from yololp_tpu_torch.ops.division import div_const, unit_pixels
 from yololp_tpu_torch.utils.device import resolve_device
 
 HIST_BINS = 2048
@@ -51,10 +52,20 @@ def quantizable_modules(model: nn.Module):
 
 def fake_quant(x: torch.Tensor, amax, num_bits: int = 8) -> torch.Tensor:
     """round_half_even(clip(x / scale, -qmax - 1, qmax)) * scale with
-    scale = max(amax, 1e-9) / qmax, in the dtype of `x` (forward only)."""
+    scale = max(amax, 1e-9) / qmax, in the dtype of `x` (forward only).
+
+    As the JAX package's jitted programs compute it (ops/division.py): a
+    Python-number `amax` is a trace-time constant there (quantized_apply's
+    calibrated amax), so the scale is a true division folded on the host and
+    `x / scale` a multiply by its reciprocal; a tensor `amax` is traced
+    (quantize_weights' per-channel amax), so `/ qmax` is a multiply by
+    fp32(1/qmax) and `x / scale` a true division."""
     qmax = 2.0 ** (num_bits - 1) - 1.0
+    if isinstance(amax, (int, float)):
+        scale = float(torch.tensor(max(float(amax), 1e-9), dtype=torch.float32) / qmax)
+        return torch.round(torch.clamp(div_const(x, scale), -qmax - 1, qmax)) * scale
     amax = torch.as_tensor(amax, dtype=x.dtype, device=x.device)
-    scale = torch.clamp(amax, min=1e-9) / qmax
+    scale = div_const(torch.clamp(amax, min=1e-9), qmax)
     return torch.round(torch.clamp(x / scale, -qmax - 1, qmax)) * scale
 
 
@@ -63,8 +74,8 @@ def fake_quant(x: torch.Tensor, amax, num_bits: int = 8) -> torch.Tensor:
 
 def _image_tensor(images_u8, device, dtype) -> torch.Tensor:
     """(N, H, W, 3) uint8 -> NCHW (channels_last) in [0, 1], as the inferer."""
-    x = torch.as_tensor(np.asarray(images_u8)).to(device)
-    return x.permute(0, 3, 1, 2).to(dtype) / 255.0
+    x = images_u8 if isinstance(images_u8, torch.Tensor) else torch.as_tensor(np.asarray(images_u8))
+    return unit_pixels(x.to(device).permute(0, 3, 1, 2), dtype)
 
 
 def model_device_dtype(model: nn.Module):
@@ -81,6 +92,15 @@ def check_model_device(model: nn.Module, device) -> torch.device:
     if model_dev.type != dev.type or (dev.index is not None and model_dev.index != dev.index):
         raise ValueError(f"the model lies on {model_dev}, the caller asked for {dev}")
     return dev
+
+
+def histogram(a: torch.Tensor, amax: float) -> torch.Tensor:
+    """Counts of |values| `a` (fp32) in HIST_BINS linear bins on [0, amax],
+    the last bin open-ended; the bin index `a / width` is a reciprocal
+    multiply, as the jitted JAX calibrator computes it (width is constant)."""
+    width = max(amax, 1e-12) / HIST_BINS
+    idx = torch.clamp(div_const(a, width).to(torch.int32), 0, HIST_BINS - 1)
+    return torch.bincount(idx.reshape(-1).long(), minlength=HIST_BINS).double()
 
 
 def make_calib_fn(model: nn.Module, mode: str = "max",
@@ -104,10 +124,7 @@ def make_calib_fn(model: nn.Module, mode: str = "max",
             if mode == "max":
                 captured[path] = a.amax()
             elif path in amax_by_path:
-                width = max(amax_by_path[path], 1e-12) / HIST_BINS
-                idx = torch.clamp((a / width).to(torch.int32), 0, HIST_BINS - 1)
-                captured[path] = torch.bincount(idx.reshape(-1).long(),
-                                                minlength=HIST_BINS).double()
+                captured[path] = histogram(a, amax_by_path[path])
         return hook
 
     captured: Dict[str, torch.Tensor] = {}

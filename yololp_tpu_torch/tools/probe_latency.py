@@ -42,6 +42,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.ops.division import unit_pixels
     from yololp_tpu_torch.ops.nms import non_max_suppression
 
     s, k = args.img_size, args.iters
@@ -67,7 +68,7 @@ def main(argv=None):
             def prog(images_u8, c0, model=model):
                 c, total = c0, 0
                 for _ in range(k):
-                    x = (images_u8 + c).permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+                    x = unit_pixels((images_u8 + c).permute(0, 3, 1, 2), torch.bfloat16)
                     det, _, num = non_max_suppression(model(x).float(), conf_thres=0.4,
                                                       iou_thres=0.45, max_det=300,
                                                       pre_nms_topk=256)

@@ -68,6 +68,7 @@ GRID = (("int8_perconv", False, False, "conv"),
 def e2e_variants(args, dev) -> dict:
     """ms per batch of uint8 -> forward -> NMS, bf16 and each int8 plan."""
     from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.ops.division import unit_pixels
     from yololp_tpu_torch.ops.nms import non_max_suppression
 
     b, s, k = args.batch_size, args.img_size, args.iters
@@ -81,7 +82,7 @@ def e2e_variants(args, dev) -> dict:
         def prog(images_u8, c0):
             c, total = c0, 0
             for _ in range(k):
-                xx = (images_u8 + c).permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+                xx = unit_pixels((images_u8 + c).permute(0, 3, 1, 2), torch.bfloat16)
                 pred = model(xx)
                 _, _, num = non_max_suppression(pred.float(), conf_thres=args.conf_thres,
                                                 iou_thres=args.iou_thres)
