@@ -90,7 +90,28 @@ toolkit. Phases, each of which raises on failure:
      1e-3, the gradients w.r.t. reg and cor within 1e-2 of their largest
      magnitude; then ms per step by part, img/s and max_memory_allocated at
      batch 32 under autocast(bfloat16) with fp32 parameters (no optimizer
-     step: the solver is not ported).
+     step);
+  14. the training path: `make_train_step` (forward, ATSS, loss, backward,
+     Nesterov SGD, the EMA of the parameters and BN statistics) at 640. Parity
+     in fp32 (TF32 off) at batch 2, card against the CPU port, 3 steps from
+     step 0, each step run on both from the card's state before it: the loss
+     items of each step within rtol 1e-3, the parameters, momentum and EMA
+     as updates over the step, each tensor's within TRAIN_UPDATE_TOL of its
+     largest update; from a state past warmup
+     at batch 32 (accumulation 2) the optimizer applies on exactly the steps
+     the host predicts; one QAT step (fake-quant with the straight-through
+     gradient) on phase 7's amax, finite, its difference from the CPU
+     printed, and one with the network input alone fake-quantized, its items
+     within rtol 1e-3 of the CPU's. Times at batch 32 under autocast(bfloat16): the full step by
+     part (forward, assign, loss, backward, SGD + EMA), img/s and peak
+     memory, and one cached epoch of 4 steps over 128 frames staged on the
+     card. Then `Trainer` for 2 epochs with --cache-device over a dataset
+     held as the device cache's .npy memos (no image is decoded), eval every
+     epoch on phase 12's in-memory frames (given through the Trainer's
+     `_eval_cache`), the NMS kernel's launch count zeroed and read around
+     each eval; the final checkpoint reloads through
+     `load_inference_variables` equal to the trained EMA fused, and its
+     detections on the card equal the plain CPU NMS's on the card's decode.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -123,6 +144,16 @@ TRAIN_PARITY_BATCH, TRAIN_STEPS = 2, 5
 # of their largest magnitude (cuDNN and the CPU sum conv products in other
 # orders, and BN in training mode normalizes by the batch's own statistics)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-3, 1e-2
+# phase 14, card vs CPU in fp32, each optimizer step from one state: each
+# tensor's update within this fraction of its largest update, plus
+# TRAIN_UPDATE_FLOOR of the largest update of any tensor. fp32's error in a
+# backward sum is relative to its terms: a tensor whose gradient is tiny
+# against the rest, or zero in exact arithmetic, carries noise of the whole
+# backward's scale (tests/test_torch_train_step.py), and cuDNN's fp32 weight
+# gradients sum in other orders than the CPU's (measured on the card: up to
+# 1.35e-3 of the largest momentum update, in a neck conv's momentum)
+TRAIN_UPDATE_TOL, TRAIN_UPDATE_FLOOR = 5e-2, 1e-2
+TRAINER_FRAMES, TRAINER_EPOCHS = 128, 2
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor fp32 op/s and
 # dense int8 tensor-core op/s
 HBM_BYTES_S, FP32_OPS_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
@@ -1185,6 +1216,340 @@ def phase_train(results, card, dev, train_model, cfg):
     return results["train"]
 
 
+def state_numpy(state, which):
+    """{name: array} of a TrainState's params + stats, EMA, or momentum."""
+    names = state.names + state.stat_names if which != "momentum" else state.names
+    tensors = {"params": state.params + state.batch_stats, "ema": state.ema_params + state.ema_stats,
+               "momentum": state.momentum}[which]
+    return {n: t.detach().float().cpu().numpy().copy() for n, t in zip(names, tensors)}
+
+
+@torch.no_grad()
+def copy_state(dst, src):
+    """Every tensor and count of TrainState `src` into `dst` (another device)."""
+    for name in ("params", "batch_stats", "momentum", "grad_accum", "ema_params", "ema_stats"):
+        for a, b in zip(getattr(dst, name), getattr(src, name)):
+            a.copy_(b)
+    dst.ema_updates, dst.step, dst.last_opt_step = src.ema_updates, src.step, src.last_opt_step
+
+
+def update_errors(got, want, start):
+    """Per tensor max |update_got - update_want| over the allowed bound; BN
+    statistics relative to their values. Returns the worst ratio and name."""
+    upd = {k: w - start[k] for k, w in want.items()}
+    floor = TRAIN_UPDATE_FLOOR * max(float(np.abs(u).max()) for u in upd.values())
+    worst = (0.0, "")
+    for k, w in want.items():
+        if k.endswith(("running_mean", "running_var")):
+            r = float(np.abs(got[k] - w).max() / (TRAIN_LOSS_RTOL * np.abs(w).max() + 5e-3))
+        else:
+            r = float(np.abs((got[k] - start[k]) - upd[k]).max()
+                      / (TRAIN_UPDATE_TOL * np.abs(upd[k]).max() + floor + 1e-30))
+        worst = max(worst, (r, k))
+    return worst
+
+
+def write_memo_dataset(root, imgs, labels, masks):
+    """A train set held as the device cache's memos: one placeholder file a
+    frame under images/train (the scan stats it, never decodes it), its
+    labels under labels/train, and the .npy memos precompute_items reads."""
+    from yololp_tpu_torch.data.datasets import TrainValDataset
+    from yololp_tpu_torch.data.device_cache import memo_paths
+
+    img_dir = os.path.join(root, "images", "train")
+    lbl_dir = os.path.join(root, "labels", "train")
+    os.makedirs(img_dir)
+    os.makedirs(lbl_dir)
+    for i in range(len(imgs)):
+        with open(os.path.join(img_dir, f"frame{i:04d}.jpg"), "wb") as f:
+            f.write(b"memo")
+        with open(os.path.join(lbl_dir, f"frame{i:04d}.txt"), "w") as f:
+            for row in labels[i][masks[i] > 0]:
+                f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+    ds = TrainValDataset(img_dir, img_size=IMG, augment=False, task="train")
+    padded = [ds._pad(lbl) for lbl in ds.labels]
+    paths = memo_paths(ds)
+    np.save(paths["images"], imgs)
+    np.save(paths["labels"], np.stack([p[0] for p in padded]))
+    np.save(paths["masks"], np.stack([p[1] for p in padded]))
+    return img_dir
+
+
+def phase_training(results, card, dev, train_model, cfg, amax, eval_frames):
+    """14. The train step with the optimizer (parity, accumulation, QAT),
+    its times, a cached epoch, and the Trainer for 2 epochs with its
+    checkpoint and evals on the card."""
+    import copy
+    import tempfile
+    import types
+
+    from yololp_tpu_torch.core.engine import Trainer
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.core.train_step import init_train_state, make_train_step
+    from yololp_tpu_torch.data.device_cache import make_cached_epoch
+    from yololp_tpu_torch.layers.fuse import fuse_state_dict
+    from yololp_tpu_torch.losses.loss import LossConfig, assign, loss_terms
+    from yololp_tpu_torch.models.yolo import Model
+    from yololp_tpu_torch.ops import cuda_nms
+    from yololp_tpu_torch.ops.division import unit_pixels
+    from yololp_tpu_torch.solver.build import (SolverConfig, accumulate_steps, ema_update,
+                                               label_groups, schedule, sgd_apply, warmup_steps)
+    from yololp_tpu_torch.utils.checkpoint import load_inference_variables
+    from yololp_tpu_torch.utils.convert import load_state_dict_strict
+
+    head, sol = cfg["model"]["head"], cfg["solver"]
+    lcfg = LossConfig(img_size=(IMG, IMG), strides=tuple(head["strides"]),
+                      use_dfl=bool(head["use_dfl"]), reg_max=int(head["reg_max"]),
+                      iou_type=head["iou_type"], assigner="atss")
+    # the config's solver; warmup_bias_lr 0.01 (not 0.1) keeps the first
+    # steps of a random net gentle, so that fp32 rounding does not grow into
+    # the next steps' losses
+    scfg = SolverConfig(lr0=sol["lr0"], lrf=sol["lrf"], momentum=sol["momentum"],
+                        weight_decay=sol["weight_decay"], warmup_epochs=sol["warmup_epochs"],
+                        warmup_momentum=sol["warmup_momentum"], warmup_bias_lr=0.01,
+                        lr_scheduler=sol["lr_scheduler"], epochs=10, steps_per_epoch=100)
+    imgs, labels, masks = labelled_frames(np.random.default_rng(SEED + 14), TRAINER_FRAMES, IMG)
+    out = {}
+
+    # parity: fp32, TF32 off, batch 2, 3 steps from step 0; each step runs
+    # on the card and on the CPU from the card's state before it (a random
+    # net in train mode is chaotic: rounding differences compound over steps)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = TRAIN_PARITY_BATCH
+    states, steps = [], []
+    for d in (dev, torch.device("cpu")):
+        model = copy.deepcopy(train_model).to(d)
+        states.append(init_train_state(model))
+        steps.append(make_train_step(model, lcfg, scfg, batch_size=n))
+    card_state, cpu_state = states
+    items, worst = [], {w: (0.0, "") for w in ("params", "ema", "momentum")}
+    t0 = time.perf_counter()
+    for i in range(3):
+        copy_state(cpu_state, card_state)
+        start = {w: state_numpy(card_state, w) for w in worst}
+        sl = slice(i * n, (i + 1) * n)
+        pair = []
+        for j, st in enumerate(states):
+            st, total, it = steps[j](st, imgs[sl], labels[sl], masks[sl])
+            pair.append(torch.cat([total.reshape(1), it]).cpu().numpy())
+        items.append(pair)
+        for w in worst:
+            worst[w] = max(worst[w], update_errors(state_numpy(card_state, w),
+                                                   state_numpy(cpu_state, w), start[w]))
+    items = np.asarray(items)  # (steps, card|cpu, 8)
+    items_err = float(np.max(np.abs(items[:, 0] - items[:, 1]) / np.maximum(np.abs(items[:, 1]), 1e-12)))
+    counts = [(st.ema_updates, st.step, st.last_opt_step) for st in states]
+    print(f"train_step parity, yololps {IMG}px fp32 (TF32 off), batch {n}, 3 steps from step 0, "
+          f"each from the card's state on both, card vs CPU ({time.perf_counter() - t0:.1f} s): "
+          f"[total + 7 items] per step {json.dumps(np.round(items[:, 1], 6).tolist())}, max rel "
+          f"diff {items_err:.3g}; counts {counts}; worst update / bound: "
+          + ", ".join(f"{w} {r:.3g} ({k})" for w, (r, k) in worst.items()))
+    if counts[0] != counts[1] or counts[0] != (3, 3, 2):
+        raise AssertionError(f"optimizer counts card {counts[0]} CPU {counts[1]}, expected (3, 3, 2)")
+    if not (items_err <= TRAIN_LOSS_RTOL and all(r <= 1.0 for r, _ in worst.values())):
+        raise AssertionError(f"train_step parity beyond rtol {TRAIN_LOSS_RTOL} (loss) / "
+                             f"{TRAIN_UPDATE_TOL} of the largest update: {worst}")
+    out["parity"] = dict(items=items[:, 1].tolist(), items_rel_err=items_err,
+                         worst_update={w: list(v) for w, v in worst.items()})
+    del states, steps, card_state, cpu_state
+
+    # one QAT step from the same state on both: with phase 7's amax (every
+    # calibrated conv input fake-quantized), and with the network input alone
+    # fake-quantized (the codes equal on both, so the steps can be held)
+    qat = {}
+    stem = {"backbone/stem/rbr_dense_conv": 0.8125, "backbone/stem/rbr_1x1_conv": 0.8125}
+    for label, q_amax in (("phase 7 amax", amax), ("input only", stem)):
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            model = copy.deepcopy(train_model).to(d)
+            state = init_train_state(model)
+            step = make_train_step(model, lcfg, scfg, batch_size=n, quant_amax=q_amax)
+            state, total, it = step(state, imgs[:n], labels[:n], masks[:n])
+            runs.append(torch.cat([total.reshape(1), it]).cpu().numpy())
+        err = float(np.max(np.abs(runs[0] - runs[1]) / np.maximum(np.abs(runs[1]), 1e-12)))
+        qat[label] = dict(card=runs[0].tolist(), cpu=runs[1].tolist(), rel_err=err)
+        print(f"QAT train_step, {label} ({len(q_amax)} conv inputs fake-quantized, every kernel per "
+              f"output channel, straight-through gradient), batch {n}: [total + 7 items] card "
+              f"{json.dumps(np.round(runs[0], 6).tolist())}, CPU max rel diff {err:.3g}")
+        if not np.isfinite(runs[0]).all():
+            raise AssertionError(f"QAT step ({label}): non-finite loss on the card {runs[0]}")
+    # a fake-quant is a step function: conv sums in another order move a few
+    # values across a code's edge, and in a deep random net each flip spreads
+    # (tests/test_torch_qat.py); the input-only case has equal codes
+    if qat["input only"]["rel_err"] > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"QAT step (input only): card vs CPU beyond rtol {TRAIN_LOSS_RTOL}")
+    out["qat"] = qat
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+    # accumulation past warmup at batch 32 (nominal 2): the optimizer applies
+    # on exactly the micro-steps the host predicts
+    model = copy.deepcopy(train_model).to(dev).to(memory_format=torch.channels_last)
+    state = init_train_state(model)
+    step = make_train_step(model, lcfg, scfg, batch_size=BATCH, dtype=torch.bfloat16)
+    state.step = warmup_steps(scfg) + 1
+    state.last_opt_step = state.step - 1
+    applied, predicted = [], []
+    probe = state.params[0]
+    acc = accumulate_steps(scfg, BATCH, state.step)
+    for i in range(2 * acc):
+        s0 = state.step
+        predicted.append(s0 - state.last_opt_step >= accumulate_steps(scfg, BATCH, s0))
+        before = probe.detach().clone()
+        state, total, _ = step(state, imgs[:BATCH], labels[:BATCH], masks[:BATCH])
+        applied.append(bool((probe.detach() != before).any()) and state.last_opt_step == s0)
+        if not torch.isfinite(total):
+            raise AssertionError("non-finite loss in the accumulation run")
+    print(f"accumulation past warmup (step {warmup_steps(scfg) + 1}.., batch {BATCH}, "
+          f"accumulate {acc}): optimizer applied {applied}, host predicted {predicted}")
+    if applied != predicted or applied != ([False] * (acc - 1) + [True]) * 2:
+        raise AssertionError(f"optimizer applied {applied}, predicted {predicted}")
+
+    # times at batch 32, autocast bf16, fp32 master parameters
+    x = unit_pixels(torch.from_numpy(imgs[:BATCH]).to(dev).permute(0, 3, 1, 2), torch.bfloat16)
+    lab = torch.from_numpy(labels[:BATCH]).to(dev)
+    msk = torch.from_numpy(masks[:BATCH]).to(dev)
+    groups = [label_groups(model)[k] for k in state.names]
+
+    def timed_step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        with torch.autocast(dev.type, dtype=torch.bfloat16):
+            o = model(x)
+        ev[1].record()
+        asg = assign(o, lab, msk, lcfg)
+        ev[2].record()
+        total, _ = loss_terms(o, asg, lcfg)
+        ev[3].record()
+        total.backward()
+        ev[4].record()
+        lr_w, lr_b, mom = schedule(scfg, state.step)
+        sgd_apply(state.params, state.grad_accum, state.momentum, groups, lr_w, lr_b, mom,
+                  scfg.weight_decay)
+        state.ema_updates += 1
+        ema_update(state.ema_params, state.params, state.ema_updates)
+        ema_update(state.ema_stats, state.batch_stats, state.ema_updates)
+        torch._foreach_zero_(state.grad_accum)
+        ev[5].record()
+        ev[5].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+    for _ in range(2):
+        timed_step()
+    torch.cuda.reset_peak_memory_stats(dev)
+    parts = np.array([timed_step() for _ in range(TRAIN_STEPS)])
+    peak = torch.cuda.max_memory_allocated(dev)
+    whole = cuda_ms(lambda: step(state, imgs[:BATCH], labels[:BATCH], masks[:BATCH]), 1)
+    names = ("forward", "assign", "loss", "backward", "sgd_ema")
+    part_ms = dict(zip(names, np.median(parts, 0).tolist()))
+    step_ms = float(np.median(parts.sum(1)))
+    n_params = sum(p.numel() for p in state.params)
+    print(f"[{card}] train step with the optimizer (Nesterov SGD + EMA of {len(state.params)} "
+          f"tensors, {n_params / 1e6:.1f} M parameters), yololps {IMG}px batch {BATCH}, autocast bf16, "
+          f"fp32 master parameters: {step_ms:.3f} ms per step (median of {TRAIN_STEPS}, CUDA "
+          f"events), {BATCH * 1e3 / step_ms:.1f} img/s; ms by part "
+          f"{json.dumps({k: round(v, 3) for k, v in part_ms.items()})}; `train_step` as called "
+          f"{float(np.median(whole)):.3f} ms (median of 5 windows); max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; phase 13 without the optimizer "
+          f"{results['train']['step_ms']:.3f} ms")
+
+    # one cached epoch: 4 steps over 128 frames staged flat on the card
+    images_all = torch.from_numpy(imgs.reshape(len(imgs), -1)).to(dev)
+    labels_all, masks_all = torch.from_numpy(labels).to(dev), torch.from_numpy(masks).to(dev)
+    epoch_fn = make_cached_epoch(step, imgs.shape[1:])
+    idx = np.random.default_rng(SEED).permutation(len(imgs)).reshape(-1, BATCH)
+    epoch_fn(state, images_all, labels_all, masks_all, torch.from_numpy(idx[:1]))  # warm-up
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state, items_sum = epoch_fn(state, images_all, labels_all, masks_all, torch.from_numpy(idx))
+    e1.record()
+    e1.synchronize()
+    epoch_ms = e0.elapsed_time(e1)
+    if not torch.isfinite(items_sum).all():
+        raise AssertionError(f"cached epoch loss items {items_sum}")
+    print(f"[{card}] cached epoch, {len(idx)} steps of {BATCH} over {len(imgs)} frames on the "
+          f"card: {epoch_ms:.3f} ms, {epoch_ms / len(idx):.3f} ms per step")
+    out.update(step_ms=step_ms, img_s=BATCH * 1e3 / step_ms, parts_ms=part_ms,
+               train_step_ms=float(np.median(whole)), peak_bytes=peak, steps_ms=parts.tolist(),
+               cached_epoch_ms_per_step=epoch_ms / len(idx))
+    del model, state, step, epoch_fn, images_all
+    torch.cuda.empty_cache()
+
+    # the Trainer: 2 epochs, --cache-device over memos, eval every epoch
+    ev_imgs, ev_labels, ev_masks = eval_frames
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = write_memo_dataset(tmp, imgs, labels, masks)
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data_aug"] = {k: 0.0 for k in cfg["data_aug"]}
+        args = types.SimpleNamespace(
+            img_size=IMG, batch_size=BATCH, epochs=TRAINER_EPOCHS, workers=0,
+            save_dir=os.path.join(tmp, "run"), conf_file="yololps", seed=SEED, bf16=True,
+            cache_device=True, assigner=None, stop_aug_last_n_epoch=15, eval_interval=1,
+            heavy_eval_range=50, quant=False, calib=False, distill=False, device=dev,
+            epochs_per_dispatch=1)
+        t0 = time.perf_counter()
+        trainer = Trainer(args, tcfg, {"train": img_dir, "val": img_dir})
+        sd = {k: v for k, v in train_model.state_dict().items() if not k.endswith("num_batches_tracked")}
+        trainer.state.load(sd, sd, {}, ema_updates=0, step=0, last_opt_step=-1_000_000)
+        ev = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=0.0, device=dev)
+        eval_model = trainer._deploy_model()
+        trainer._eval_cache = (eval_model, ev, loader_batches(ev_imgs, ev_labels, ev_masks, BATCH),
+                               ev.make_infer_fn(eval_model))
+        evals = []
+        eval_model_fn = trainer.eval_model
+
+        def counted_eval():
+            cuda_nms.launches = 0
+            res = eval_model_fn()
+            torch.cuda.synchronize()
+            evals.append(cuda_nms.launches)
+            return res
+
+        trainer.eval_model = counted_eval
+        trainer.train()
+        train_s = time.perf_counter() - t0
+        log = [json.loads(line) for line in open(trainer.log_path)]
+        wdir = os.path.join(args.save_dir, "weights")
+        saved = sorted(os.listdir(wdir))
+        print(f"[{card}] Trainer, yololps {IMG}px batch {BATCH} bf16, {TRAINER_EPOCHS} epochs of "
+              f"{trainer.steps_per_epoch} steps (--cache-device over {len(imgs)} memo frames), eval "
+              f"each epoch on {len(ev_imgs)} frames: {train_s:.1f} s in all; epoch_time_s "
+              f"{[r['epoch_time_s'] for r in log]}; eval ms per image "
+              f"{[{k: round(r[k], 4) for k in ('pre_ms', 'infer_ms', 'post_ms')} for r in log]}; "
+              f"greedy_nms launches per eval {evals}; checkpoints {saved}")
+        print(f"  train log: {json.dumps(log)}")
+        if len(log) != TRAINER_EPOCHS or min(evals, default=0) < 1 or len(evals) != TRAINER_EPOCHS:
+            raise AssertionError(f"Trainer: {len(log)} log records, NMS launches per eval {evals}")
+        if "final_ckpt.msgpack" not in saved or not all(
+                np.isfinite(v) for r in log for k, v in r.items() if k.startswith("train/")):
+            raise AssertionError(f"Trainer: checkpoints {saved}, log {log}")
+
+        # the checkpoint reloads as the trained EMA, fused; its detections on
+        # the card equal the plain CPU NMS's on the card's decode
+        reloaded = load_inference_variables(os.path.join(wdir, "final_ckpt.msgpack"))
+        fused = fuse_state_dict({k: v.cpu() for k, v in trainer.state.ema_state_dict().items()})
+        if set(reloaded) != set(fused) or any(not torch.equal(reloaded[k], fused[k]) for k in fused):
+            raise AssertionError("final_ckpt.msgpack does not reload as the trained EMA, fused")
+        deploy = Model(cfg, deploy=True)
+        load_state_dict_strict(deploy, reloaded)
+        deploy = deploy.to(dev, torch.bfloat16).to(memory_format=torch.channels_last).eval()
+        ev2 = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=0.0, device=dev)
+        metric, launches, preds, _ = eval_on_card(
+            ev2, ev2.make_infer_fn(deploy), deploy,
+            loader_batches(ev_imgs, ev_labels, ev_masks, BATCH), (cuda_nms,))
+        print(f"final_ckpt.msgpack reloaded through load_inference_variables == the trained EMA "
+              f"fused ({len(reloaded)} tensors); eval on the card: launches {launches}, "
+              f"detections {sum(map(len, preds))}, == the plain CPU NMS on the card's decode; "
+              f"metric {json.dumps(metric)}")
+        if launches["cuda_nms"] < 1 or sum(map(len, preds)) == 0:
+            raise AssertionError(f"reloaded eval: launches {launches}, {sum(map(len, preds))} dets")
+        out["trainer"] = dict(seconds=train_s, log=log, nms_launches_per_eval=evals,
+                              checkpoints=saved, reload_launches=launches, metric=metric)
+    results["training"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -1322,6 +1687,9 @@ def main():
     # 12. the evaler on the card; 13. the train forward, assignment, loss and backward
     phase_eval(results, card, dev, inferer, ctx8)
     phase_train(results, card, dev, train, cfg)
+    # 14. the training path: optimizer steps, QAT, times, the Trainer and its checkpoint
+    eval_frames = labelled_frames(np.random.default_rng(SEED + 12), EVAL_FRAMES, IMG)
+    phase_training(results, card, dev, train, cfg, ctx8["amax"], eval_frames)
 
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",

@@ -182,8 +182,24 @@ def test_dataset_items_and_label_cache_equal_jax(synthetic):
                     np.testing.assert_array_equal(g, w)
                 else:
                     assert g == w
-    with pytest.raises(NotImplementedError, match="augment"):
-        TrainValDataset(data["val"], augment=True)
+    # augment=True (the train protocol) is ported: seeded items equal JAX's
+    import random
+
+    aug = {"degrees": 5.0, "translate": 0.1, "scale": 0.3, "shear": 1.0, "mosaic": 0.5,
+           "generate": 0.5, "gen_paste": 0.5}
+    tds = TrainValDataset(data["val"], img_size=IMG, augment=True, hyp=aug, seed=2)
+    jds = JDataset(data["val"], img_size=IMG, augment=True, hyp=aug, seed=2)
+    for i in range(len(tds)):
+        items = []
+        for ds in (tds, jds):
+            random.seed(i)
+            np.random.seed(i)
+            items.append(ds[i])
+        for g, w in zip(*items):
+            if isinstance(g, np.ndarray):
+                np.testing.assert_array_equal(g, w)
+            else:
+                assert g == w
 
 
 def test_run_eval_and_refusals(synthetic, models):

@@ -1,6 +1,8 @@
 """The port stands alone: no module of yololp_tpu_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package, and every entry point
-refuses to fall back to the CPU when no GPU is present."""
+chip_smoke.py, imports jax, flax or the JAX package (cv2, msgpack, yaml and
+PIL only inside functions), and every entry point refuses to fall back to
+the CPU when no GPU is present; the trainer refuses what waits for later
+items (a mesh, RepOpt, distillation)."""
 
 import ast
 import subprocess
@@ -155,3 +157,48 @@ def test_the_loss_stays_on_the_cpu_for_cpu_inputs():
     total, items = compute_loss(out, labels, torch.tensor([[1.0, 0.0]]),
                                 LossConfig(img_size=(64, 64)))
     assert total.device.type == "cpu" and items.shape == (7,) and torch.isfinite(total)
+
+
+def test_train_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    """The trainer, the train CLI, the device cache and the train step's
+    model take the card unless the CPU is asked for."""
+    import types
+
+    from yololp_tpu_torch.core.engine import Trainer
+    from yololp_tpu_torch.data.device_cache import DeviceCachedData
+    from yololp_tpu_torch.tools.train import main
+    from yololp_tpu_torch.utils.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--synthetic-data", "--conf-file", "yololpn", "--output-dir", str(tmp_path)])
+    args = types.SimpleNamespace(img_size=64, batch_size=2, epochs=1, workers=0,
+                                 save_dir=str(tmp_path / "run"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(args, Config.named("yololpn"), {"train": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceCachedData(None)
+    assert not (tmp_path / "synthetic_data").exists()  # refused before any work
+
+
+def test_trainer_refuses_what_waits_for_later_items(tmp_path):
+    import types
+
+    from yololp_tpu_torch.core.engine import Trainer
+    from yololp_tpu_torch.core.train_step import make_train_step
+    from yololp_tpu_torch.utils.config import Config
+
+    args = types.SimpleNamespace(img_size=64, batch_size=2, epochs=1, workers=0, device="cpu",
+                                 save_dir=str(tmp_path / "run"), distill=True)
+    with pytest.raises(NotImplementedError, match="A.12"):
+        Trainer(args, Config.named("yololpn"), {"train": str(tmp_path)})
+    cfg = Config.named("yololpn")
+    cfg["training_mode"] = "repopt"
+    with pytest.raises(NotImplementedError, match="A.12"):
+        Trainer(args, cfg, {"train": str(tmp_path)})
+    with pytest.raises(NotImplementedError, match="A.13"):
+        Trainer(args, Config.named("yololpn"), {"train": str(tmp_path)}, device_mesh=object())
+    with pytest.raises(NotImplementedError, match="A.12"):
+        make_train_step(torch.nn.Conv2d(3, 3, 1), None, None, 2, grad_masks={})
+    with pytest.raises(NotImplementedError, match="A.12"):
+        make_train_step(torch.nn.Conv2d(3, 3, 1), None, None, 2, teacher=object())

@@ -52,12 +52,44 @@ def test_delta2_scales_and_guards():
 
     for _ in range(3):
         try:
-            tp.timed_scan_delta2(constant_cost, 8, x, w, repeats=3)
+            tp.timed_scan_delta2(constant_cost, 8, x, w, repeats=3, attempts=1)
         except RuntimeError as e:
             assert "did not scale" in str(e)
             break
     else:
         pytest.fail("K->2K scaling guard never tripped in 3 attempts")
+
+
+@pytest.mark.parametrize("scaling_from_k, expect", [(8, 0.125), (None, "did not scale")])
+def test_delta2_alternates_and_retries_at_twice_k(monkeypatch, scaling_from_k, expect):
+    """The K and 2K calls alternate after one warm call of each; a
+    measurement that does not scale is taken anew at twice the K, up to 3 in
+    all. Walls are scripted by K: flat (1.0) below `scaling_from_k`, then K/8."""
+    calls = []
+
+    def make_fn_of_k(k):
+        def run(x):
+            calls.append(k)
+            return x
+        return run
+
+    def wall(k):
+        return 1.0 if scaling_from_k is None or k <= scaling_from_k else k / 8
+
+    def fake_fetch(fn, op):
+        fn(*op)
+        return wall(calls[-1])
+
+    monkeypatch.setattr(tp, "_timed_value_fetch", fake_fetch)
+    x = torch.zeros(4)
+    if isinstance(expect, str):
+        with pytest.raises(RuntimeError, match=expect):
+            tp.timed_scan_delta2(make_fn_of_k, 4, x, repeats=2)
+        assert calls == [4, 8] * 3 + [8, 16] * 3 + [16, 32] * 3
+    else:
+        # K=4 is flat (1.0 vs 1.0); K=8 scales: (2.0 - 1.0) / 8
+        assert tp.timed_scan_delta2(make_fn_of_k, 4, x, repeats=2) == expect
+        assert calls == [4, 8] * 3 + [8, 16] * 3
 
 
 def test_fresh_rolled_changes_contents_not_structure():

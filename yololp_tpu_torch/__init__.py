@@ -6,10 +6,15 @@ Detect) -> 290-column decode -> NMS whose greedy keep-mask runs in a
 hand-written CUDA kernel (csrc/greedy_nms.cu). True-int8 inference
 (quant/) runs every calibrated conv in a second one (csrc/int8_conv.cu).
 The evaler (core/evaler.py, tools/eval.py) scores a checkpoint with the LP
-metric; losses/ and assigners/ hold the training loss with ATSS and TAL.
+metric; losses/ and assigners/ hold the training loss with ATSS and TAL;
+solver/, core/train_step.py, core/engine.py and tools/train.py train
+(Nesterov SGD, EMA, gradient accumulation, QAT's straight-through
+fake-quant, the device-resident dataset cache) and write checkpoints in the
+JAX package's msgpack format.
 
-The package imports torch, numpy and the standard library only; cv2, yaml,
-PIL and msgpack are imported inside the functions that need them. Entry points take
+The package imports torch, numpy and the standard library only; cv2, yaml
+and PIL are imported inside the functions that need them, and the
+checkpoint codec is the package's own (no msgpack). Entry points take
 an explicit `device`, default to "cuda" and raise when no GPU is present
 unless the caller asks for "cpu".
 """

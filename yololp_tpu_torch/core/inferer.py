@@ -3,7 +3,8 @@
 The device pipeline: uint8 NHWC batch -> /255 in the compute dtype -> fused
 deploy forward (channels_last) -> 290-column decode -> NMS with the greedy
 keep-mask in csrc/greedy_nms.cu -> (min(max_det, K), 28) detections. The
-host does only decode, letterbox and text output.
+host does only decode, letterbox, drawing and text output (cv2 imported
+where an image is read, drawn or written).
 
 half=True computes in bf16, as the JAX inferer does by default. half=False is
 fp32 and turns TF32 off for cuDNN convs and matmuls
@@ -160,6 +161,26 @@ class Inferer:
         ids = det_row[20:28].astype(int)
         return V.plate_string(ids[0], ids[1], ids[2:8])
 
+    def draw(self, img_bgr: np.ndarray, dets: np.ndarray) -> np.ndarray:
+        """A copy of `img_bgr` with each detection's box, corner quad and
+        plate string with its confidence."""
+        import cv2
+
+        from yololp_tpu_torch.data.glyphs import blit_text
+
+        out = img_bgr.copy()
+        for d in dets:
+            x1, y1, x2, y2 = d[:4].astype(int)
+            cv2.rectangle(out, (x1, y1), (x2, y2), (255, 255, 255), 2)
+            quad = d[4:12].reshape(4, 2).astype(int)
+            for i in range(4):
+                cv2.line(out, tuple(quad[i]), tuple(quad[(i + 1) % 4]), (0, 255, 255), 2)
+        for d in dets:
+            conf = float(d[12:20].mean())
+            blit_text(out, f"{self.plate_text(d)} {conf:.2f}",
+                      (int(d[0]), max(int(d[1]) - 24, 0)), color=(0, 0, 255), size=22)
+        return out
+
     def _write_labels(self, save_dir: Path, path: str, dets: np.ndarray):
         with open(save_dir / "labels" / (Path(path).stem + ".txt"), "a") as f:
             for d in dets:
@@ -167,21 +188,40 @@ class Inferer:
                 f.write(" ".join(f"{v:.4f}" for v in d[:12])
                         + f" {conf:.4f} {self.plate_text(d)}\n")
 
-    def infer(self, save_dir: str, save_txt: bool = True):
-        """Iterate the source one frame at a time, writing label txts."""
+    def infer(self, save_dir: str, save_txt: bool = True, save_img: bool = True):
+        """Iterate the source one frame at a time, writing label txts and
+        annotated images (a video's frames into <stem>_out.mp4)."""
+        import cv2
+
         save_dir = Path(save_dir)
         (save_dir / "labels").mkdir(parents=True, exist_ok=True)
+        vid_writer = None
         results = []
-        for img, path, _ in LoadData(self.source):
+        for img, path, kind in LoadData(self.source):
             dets = self.detect(img)
             results.append((path, dets))
             if save_txt:
                 self._write_labels(save_dir, path, dets)
+            if save_img:
+                drawn = self.draw(img, dets)
+                if kind == "image":
+                    cv2.imwrite(str(save_dir / Path(path).name), drawn)
+                else:
+                    if vid_writer is None:
+                        vid_writer = cv2.VideoWriter(
+                            str(save_dir / (Path(path).stem + "_out.mp4")),
+                            cv2.VideoWriter_fourcc(*"mp4v"), 30, (drawn.shape[1], drawn.shape[0]))
+                    vid_writer.write(drawn)
+        if vid_writer is not None:
+            vid_writer.release()
         return results
 
-    def infer_batched(self, save_dir: str, batch_size: int = 16, save_txt: bool = True):
+    def infer_batched(self, save_dir: str, batch_size: int = 16, save_txt: bool = True,
+                      save_img: bool = False):
         """Stream the source in fixed-size batches of decoded frames (the tail
         batch is padded by repeating its last frame)."""
+        import cv2
+
         save_dir = Path(save_dir)
         (save_dir / "labels").mkdir(parents=True, exist_ok=True)
         results = []
@@ -190,10 +230,12 @@ class Inferer:
         def flush():
             n_real = len(pending)
             batch = pending + [pending[-1]] * (batch_size - n_real)
-            for path, d in zip(pending_paths, self.detect_batch(batch)[:n_real]):
+            for path, img, d in zip(pending_paths, pending, self.detect_batch(batch)[:n_real]):
                 results.append((path, d))
                 if save_txt:
                     self._write_labels(save_dir, path, d)
+                if save_img:
+                    cv2.imwrite(str(save_dir / Path(path).name), self.draw(img, d))
             pending.clear()
             pending_paths.clear()
 

@@ -1,14 +1,17 @@
-"""Validation dataset and loaders producing fixed-shape padded batches (the
-val half of yololp_tpu/data/datasets.py, copied).
+"""Dataset and loaders producing fixed-shape padded batches (copied from
+yololp_tpu/data/datasets.py).
 
 Batches are (images (B, H, W, 3) RGB uint8 NHWC, labels (B, MAX_BOXES, 20)
 normalized, mask (B, MAX_BOXES), paths, shapes). On-disk labels are
 `labels/<stem>.txt` beside `images/<stem>.*`, rows of 20 floats
 `[pro, alp, ads0..5, cx, cy, w, h, x1..y4]`, coords normalized to [0, 1].
 
-Only the validation protocol is ported: `augment=True` (mosaic, mixup, the
-plate generator) raises. cv2 is imported only where an image is read, so the
-module imports on a machine without it.
+augment=True is the train protocol: mosaic, mixup, the plate generator's
+warp and paste, random affine, HSV jitter (data/augment.py,
+data/generate.py), drawn from Python's `random` and numpy's global state as
+in the JAX package. cv2 is imported only where an image is read or
+transformed, so the module imports on a machine without it. Multi-process
+sharding (`process_shard`) waits for ROADMAP A.13.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from yololp_tpu_torch.data.augment import augment_hsv, mixup, mosaic_augmentation, random_affine
+from yololp_tpu_torch.data.generate import PlateGenerator, paste_plates, warp_into_image
 from yololp_tpu_torch.data.images import IMG_FORMATS, letterbox
 
 MAX_BOXES = 32
@@ -91,9 +96,8 @@ class TrainValDataset:
 
     def __init__(self, img_dir: str, img_size: int = 640, augment: bool = False,
                  hyp: Optional[Dict] = None, task: str = "train",
-                 max_boxes: int = MAX_BOXES):
-        if augment:
-            raise NotImplementedError("augment=True (the train protocol) is not ported yet")
+                 max_boxes: int = MAX_BOXES, seed: Optional[int] = None,
+                 cjk_font_path: Optional[str] = None):
         self.img_dir = img_dir
         self.img_size = img_size
         self.augment = augment
@@ -101,9 +105,15 @@ class TrainValDataset:
         self.task = task
         self.max_boxes = max_boxes
         self.img_paths, self.labels = scan_dataset(img_dir)
+        self.gen = PlateGenerator(seed=seed, cjk_font_path=cjk_font_path)
 
     def __len__(self):
         return len(self.img_paths)
+
+    def disable_heavy_aug(self):
+        """--stop_aug_last_n_epoch: mosaic and mixup off."""
+        self.hyp["mosaic"] = 0.0
+        self.hyp["mixup"] = 0.0
 
     def load_image(self, index, force_load_size=None):
         """cv2 read + ratio-preserving resize of the long side to img_size."""
@@ -118,6 +128,18 @@ class TrainValDataset:
             interp = cv2.INTER_AREA if r < 1 and not self.augment else cv2.INTER_LINEAR
             im = cv2.resize(im, (int(w0 * r), int(h0 * r)), interpolation=interp)
         return im, (h0, w0), im.shape[:2]
+
+    def get_mosaic(self, index):
+        indices = [index] + random.choices(range(len(self.img_paths)), k=3)
+        random.shuffle(indices)
+        imgs, hs, ws, labels = [], [], [], []
+        for i in indices:
+            img, _, (h, w) = self.load_image(i)
+            imgs.append(img)
+            hs.append(h)
+            ws.append(w)
+            labels.append(self.labels[i])
+        return mosaic_augmentation(self.img_size, imgs, hs, ws, labels, self.hyp)
 
     def _pad(self, labels: np.ndarray):
         out = np.zeros((self.max_boxes, 20), np.float32)
@@ -192,7 +214,29 @@ class TrainValDataset:
             return cv2.imread(self.img_paths[index]).shape[:2]
 
     def __getitem__(self, index):
-        img, labels, shapes = self._letterboxed_item(index, self.img_size)
+        hyp = self.hyp
+        if self.augment and random.random() < hyp.get("mosaic", 0):
+            img, labels = self.get_mosaic(index)
+            shapes = None
+            if random.random() < hyp.get("mixup", 0):
+                img2, labels2 = self.get_mosaic(random.randint(0, len(self.img_paths) - 1))
+                img, labels = mixup(img, labels, img2, labels2)
+            if random.random() < hyp.get("generate", 0):
+                img, labels = warp_into_image(img, labels, self.gen)
+            if random.random() < hyp.get("gen_paste", 0):
+                img, labels = paste_plates(img, labels, self.gen)
+        else:
+            img, labels, shapes = self._letterboxed_item(index, self.img_size)
+            if self.augment and random.random() < hyp.get("generate", 0):
+                img, labels = warp_into_image(img, labels, self.gen)
+            if self.augment:
+                img, labels = random_affine(
+                    img, labels, degrees=hyp.get("degrees", 0),
+                    translate=hyp.get("translate", 0.1), scale=hyp.get("scale", 0.5),
+                    shear=hyp.get("shear", 0), new_shape=(self.img_size, self.img_size))
+        if self.augment:
+            augment_hsv(img, hgain=hyp.get("hsv_h", 0.015), sgain=hyp.get("hsv_s", 0.7),
+                        vgain=hyp.get("hsv_v", 0.4))
         rgb, padded, mask = self._normalize_and_pad(img, labels)
         return rgb, padded, mask, self.img_paths[index], shapes
 
@@ -267,15 +311,17 @@ class RectValLoader:
 
 
 def create_dataloader(path, img_size, batch_size, hyp=None, augment=False, workers=8,
-                      shuffle=None, drop_last=None, task="train", max_boxes: int = MAX_BOXES):
+                      shuffle=None, drop_last=None, task="train", max_boxes: int = MAX_BOXES,
+                      seed=None):
     """The host pipeline: torch.utils.data.DataLoader with `workers` spawned
-    processes, or the single-process loader with workers=0."""
+    processes, or the single-process loader with workers=0. Training drops
+    the last partial batch, so every step has one shape."""
     if shuffle is None:
         shuffle = task == "train"
     if drop_last is None:
         drop_last = task == "train"
     dataset = TrainValDataset(path, img_size=img_size, augment=augment, hyp=hyp, task=task,
-                              max_boxes=max_boxes)
+                              max_boxes=max_boxes, seed=seed)
     if workers > 0:
         from torch.utils.data import DataLoader
 

@@ -1,5 +1,5 @@
-"""int8 calibration and fake-quant simulation (mirrors
-yololp_tpu/quant/quantize.py, forward only).
+"""int8 calibration and fake-quant simulation, with QAT's straight-through
+gradient (mirrors yololp_tpu/quant/quantize.py).
 
 The JAX package observes conv inputs with a flax `intercept_methods` pass;
 here forward pre-hooks on every `nn.Conv2d` / `nn.ConvTranspose2d` do the
@@ -9,12 +9,26 @@ unchanged into the other. Skip lists match by substring.
 
 The amax reducers (`merge_calib_stats`, `_amax_percentile`, `_amax_entropy`,
 `_amax_mse`, `compute_amax`) are plain numpy, copied so that the port imports
-nothing of the JAX package. The straight-through backward of `fake_quant`
-(QAT) is not ported.
+nothing of the JAX package.
+
+Which functions carry a gradient:
+  * `fake_quant_ste` is `fake_quant` with the JAX package's custom VJP
+    (`_fq_bwd`): the gradient passes where |x| <= max(amax, 1e-9) and is zero
+    outside; amax gets none.
+  * `quantize_weights(..., train=True)` returns the live conv weights
+    fake-quantized through `fake_quant_ste` (a {parameter name: tensor} dict
+    in the graph, amax traced per output channel), and
+    `quantized_apply(..., train=True, weights=...)` runs the model with them
+    (`torch.func.functional_call`) and its conv inputs fake-quantized through
+    `fake_quant_ste`: the QAT train step's forward (core/train_step.py).
+  * Inference only: `fake_quant`, `quantize_weights(train=False)` (a
+    fake-quantized deep copy, no gradient), `quantized_apply(train=False)`
+    (under inference mode) and the calibration functions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -67,6 +81,31 @@ def fake_quant(x: torch.Tensor, amax, num_bits: int = 8) -> torch.Tensor:
     amax = torch.as_tensor(amax, dtype=x.dtype, device=x.device)
     scale = div_const(torch.clamp(amax, min=1e-9), qmax)
     return torch.round(torch.clamp(x / scale, -qmax - 1, qmax)) * scale
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    """fake_quant forward, straight-through backward inside the clip range."""
+
+    @staticmethod
+    def forward(ctx, x, amax, num_bits):
+        if isinstance(amax, torch.Tensor):
+            bound = torch.clamp(amax.detach().to(torch.float32), min=1e-9)
+        else:  # fp32, as the JAX package's jnp.maximum(amax, 1e-9) of an fp32 amax
+            bound = torch.tensor(max(float(np.float32(amax)), float(np.float32(1e-9))),
+                                 dtype=torch.float32)
+        ctx.save_for_backward(x, bound.to(x.device))
+        return fake_quant(x, amax, num_bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bound = ctx.saved_tensors
+        return g * (x.abs() <= bound).to(g.dtype), None, None
+
+
+def fake_quant_ste(x: torch.Tensor, amax, num_bits: int = 8) -> torch.Tensor:
+    """`fake_quant` whose gradient w.r.t. `x` is `g * (|x| <= max(amax,
+    1e-9))` (the JAX package's `_fq_bwd`), with no gradient to `amax`."""
+    return _FakeQuantSTE.apply(x, amax, num_bits)
 
 
 # ---------------- calibration ----------------
@@ -274,11 +313,27 @@ def _out_channel_dims(m: nn.Module) -> Tuple[int, ...]:
     return (0, 2, 3) if isinstance(m, nn.ConvTranspose2d) else (1, 2, 3)
 
 
-@torch.no_grad()
 def quantize_weights(model: nn.Module, num_bits: int = 8,
-                     skip_substrings: Sequence[str] = DEFAULT_SKIP_SUBSTRINGS) -> nn.Module:
-    """A copy of `model` with every conv kernel fake-quantized per output
-    channel, in fp32 (the JAX package's quantize_weights)."""
+                     skip_substrings: Sequence[str] = DEFAULT_SKIP_SUBSTRINGS,
+                     train: bool = False):
+    """Every conv kernel of `model` fake-quantized per output channel, in
+    fp32 (the JAX package's quantize_weights), the amax max|w| of each
+    channel. train=False: a copy of `model` holding them (no gradient).
+    train=True: {parameter name: fake-quantized weight} of the live weights,
+    through the straight-through `fake_quant_ste`, for `quantized_apply`."""
+    if not train:
+        return _quantized_copy(model, num_bits, skip_substrings)
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, QUANTIZABLE) and not _skip(module_path(name), skip_substrings):
+            w = m.weight.float()
+            amax = w.detach().abs().amax(dim=_out_channel_dims(m), keepdim=True)
+            out[f"{name}.weight"] = fake_quant_ste(w, amax, num_bits).to(m.weight.dtype)
+    return out
+
+
+@torch.no_grad()
+def _quantized_copy(model: nn.Module, num_bits: int, skip_substrings: Sequence[str]) -> nn.Module:
     out = copy.deepcopy(model)
     for path, m in quantizable_modules(out):
         if _skip(path, skip_substrings):
@@ -290,22 +345,29 @@ def quantize_weights(model: nn.Module, num_bits: int = 8,
     return out
 
 
-@torch.inference_mode()
 def quantized_apply(model: nn.Module, x: torch.Tensor, amax_by_path: Dict[str, float],
                     num_bits: int = 8,
-                    skip_substrings: Sequence[str] = DEFAULT_SKIP_SUBSTRINGS):
+                    skip_substrings: Sequence[str] = DEFAULT_SKIP_SUBSTRINGS,
+                    train: bool = False, weights: Dict[str, torch.Tensor] | None = None):
     """Forward with each calibrated conv's input fake-quantized (in fp32,
-    then cast back); weights are quantized separately by quantize_weights."""
+    then cast back). train=False runs under inference mode; train=True keeps
+    the graph, the inputs going through `fake_quant_ste`, and `weights`
+    (from quantize_weights(train=True)) replace the module's own."""
+    fq = fake_quant_ste if train else fake_quant
+
     def hook_for(path):
         def hook(_module, args):
-            a0 = fake_quant(args[0].float(), float(amax_by_path[path]), num_bits)
+            a0 = fq(args[0].float(), float(amax_by_path[path]), num_bits)
             return (a0.to(args[0].dtype),) + tuple(args[1:])
         return hook
 
     handles = [m.register_forward_pre_hook(hook_for(p)) for p, m in quantizable_modules(model)
                if p in amax_by_path and not _skip(p, skip_substrings)]
     try:
-        return model(x)
+        with contextlib.nullcontext() if train else torch.inference_mode():
+            if weights:
+                return torch.func.functional_call(model, weights, (x,), strict=False)
+            return model(x)
     finally:
         for h in handles:
             h.remove()

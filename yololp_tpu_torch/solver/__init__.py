@@ -1,0 +1,12 @@
+from yololp_tpu_torch.solver.build import (
+    SolverConfig,
+    accumulate_steps,
+    ema_decay,
+    ema_update,
+    init_momentum,
+    label_groups,
+    lr_lambda,
+    schedule,
+    sgd_apply,
+    warmup_steps,
+)

@@ -2,14 +2,13 @@
 
 Example:
   python -m yololp_tpu_torch.tools.infer --source img.jpg --conf-file yololps \
-      --weights best_ckpt.msgpack --not-save-img
+      --weights best_ckpt.msgpack
 
 True-int8 inference (calibrated convs in csrc/int8_conv.cu):
   python -m yololp_tpu_torch.tools.infer --source img.jpg --conf-file yololps \
-      --int8 --calib-pt amax.json --conv-impl pallas --not-save-img
+      --int8 --calib-pt amax.json --conv-impl pallas
 
-Drawing annotated images is not ported yet, so the CLI writes label txts
-only and requires --not-save-img.
+Writes label txts and annotated images (--not-save-img: txts only).
 """
 
 from __future__ import annotations
@@ -35,8 +34,7 @@ def get_args_parser():
     parser.add_argument("--nms-selector", default="topk", choices=["topk"])
     parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     parser.add_argument("--save-txt", action="store_true", default=True)
-    parser.add_argument("--not-save-img", action="store_true",
-                        help="required: drawing is not ported yet")
+    parser.add_argument("--not-save-img", action="store_true")
     parser.add_argument("--project", default="runs/inference")
     parser.add_argument("--name", default="exp")
     parser.add_argument("--half", action="store_true", default=True,
@@ -56,8 +54,6 @@ def get_args_parser():
 def main(args=None):
     parser = get_args_parser()
     args = parser.parse_args(args)
-    if not args.not_save_img:
-        parser.error("drawing annotated images is not ported yet; pass --not-save-img")
     if args.int8 and not args.calib_pt:
         parser.error("--int8 requires --calib-pt")
 
@@ -81,10 +77,11 @@ def main(args=None):
     save_dir = osp.join(args.project, args.name)
     if args.batch_size > 1:
         results = inferer.infer_batched(save_dir, batch_size=args.batch_size,
-                                        save_txt=args.save_txt)
+                                        save_txt=args.save_txt, save_img=not args.not_save_img)
     else:
         inferer.warmup()
-        results = inferer.infer(save_dir, save_txt=args.save_txt)
+        results = inferer.infer(save_dir, save_txt=args.save_txt,
+                                save_img=not args.not_save_img)
     for path, dets in results:
         strings = [inferer.plate_text(d) for d in dets]
         print(f"{path}: {len(dets)} plate(s) {strings}")

@@ -14,8 +14,9 @@ Times the same contraction through each route, bf16 and int8:
   conv 9 dots     a 3x3 conv as 9 shifted matmuls on the kernel
 
 Protocol: utils/profiler.timed_scan_delta2 (K chained steps, each step's
-input computed from the previous output; median of 3 calls of the K- and
-2K-step loops, differenced, with the K->2K scaling guard).
+input computed from the previous output; median of 3 alternating calls of
+the K- and 2K-step loops, differenced, with the K->2K scaling guard: a
+measurement that does not scale is taken anew at twice the K).
 
     python -m yololp_tpu_torch.tools.probe_mxu_int8 --device cuda
     python -m yololp_tpu_torch.tools.probe_mxu_int8 --device cpu --small

@@ -1,4 +1,4 @@
-"""JAX variable trees -> this package's state dicts.
+"""JAX variable trees <-> this package's state dicts.
 
 The port's module tree carries the JAX package's module names (the naming
 contract of layers/blocks.py), so a flax path maps to the same dotted torch
@@ -13,7 +13,8 @@ path. Only the leaves and layouts change:
 
 Input trees are nested dicts of numpy arrays, as a msgpack checkpoint holds
 them, in train format ({'params', 'batch_stats'}) or deploy format
-({'params'} only).
+({'params'} only). `state_dict_to_jax` is the inverse: what the port writes
+into a checkpoint loads in the JAX package as its own tree.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from torch import nn
 _TRANSPOSE_CONV = "upsample_transpose"
 _PARAM_LEAVES = {"bias": "bias", "scale": "weight"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_STAT_NAMES = {v: k for k, v in _STAT_LEAVES.items()}
 
 
 def _flatten(tree: Dict, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -63,6 +65,45 @@ def jax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"no mapping for batch_stats leaf {'.'.join(path)!r}")
         out[module + "." + _STAT_LEAVES[leaf]] = arr
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def _kernel(module: str, weight: np.ndarray) -> np.ndarray:
+    if module.rsplit(".", 1)[-1] == _TRANSPOSE_CONV:
+        return np.ascontiguousarray(weight.transpose(2, 3, 0, 1)[::-1, ::-1])
+    return np.ascontiguousarray(weight.transpose(2, 3, 1, 0))
+
+
+def _insert(tree: Dict, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """A state dict of this package (train or deploy graph) -> the JAX
+    package's {'params', 'batch_stats'} tree of float32 numpy arrays: OIHW
+    -> HWIO, the transposed conv unflipped, BN 'weight' -> 'scale' and the
+    running statistics -> batch_stats 'mean'/'var'. BN's step counters are
+    dropped; a tree without statistics has no 'batch_stats'."""
+    params: Dict = {}
+    stats: Dict = {}
+    for key, t in state_dict.items():
+        *mods, leaf = key.split(".")
+        module = ".".join(mods)
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf == "weight" and arr.ndim == 4:
+            _insert(params, mods + ["kernel"], _kernel(module, arr))
+        elif leaf == "weight" and arr.ndim == 1:
+            _insert(params, mods + ["scale"], arr.copy())
+        elif leaf == "bias":
+            _insert(params, mods + ["bias"], arr.copy())
+        elif leaf in _STAT_NAMES:
+            _insert(stats, mods + [_STAT_NAMES[leaf]], arr.copy())
+        else:
+            raise KeyError(f"no mapping for state dict entry {key!r}")
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
 
 
 def load_state_dict_strict(model: nn.Module, state_dict: Dict[str, torch.Tensor]):

@@ -87,24 +87,29 @@ def model_flops(fn, *example_args) -> dict:
     return out
 
 
-def kernel_device_ms(fn, name: str, calls: int = 10) -> float:
+def kernel_device_ms(fn, name: str, calls: int = 10, attempts: int = 3) -> float:
     """Device milliseconds per call of `fn` spent in the CUDA kernels whose
     name contains `name`, by torch.profiler over `calls` calls after one
-    warm call: the kernel's own time, without the host's launch gaps."""
+    warm call: the kernel's own time, without the host's launch gaps. A
+    profiling session that records none of the kernel's launches (CUPTI
+    dropped them once on the H100 machine, right after a profile that saw
+    the same kernel) is repeated, up to `attempts` sessions in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and name in e.key)
-    if us <= 0:
-        raise RuntimeError(f"the profiler saw no device time in a kernel named *{name}*")
-    return us / 1e3 / calls
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and name in e.key)
+        if us > 0:
+            return us / 1e3 / calls
+    raise RuntimeError(f"the profiler saw no device time in a kernel named *{name}* "
+                       f"in {attempts} sessions")
 
 
 def fresh_operands(op):
@@ -197,28 +202,36 @@ def timed_scan_delta(make_fn_of_k, iters: int, *op) -> float:
     return max(t2 - t1, 1e-12) / iters
 
 
-def timed_scan_delta2(make_fn_of_k, iters: int, *op, repeats: int = 3) -> float:
+def timed_scan_delta2(make_fn_of_k, iters: int, *op, repeats: int = 3,
+                      attempts: int = 3) -> float:
     """Per-step seconds: the median of `repeats` timed calls of the 2K-step
     loop minus the median of the K-step loop, over K; each timed call on
-    freshly rolled operand contents, after one warm call.
+    freshly rolled operand contents, after one warm call of each loop. The K
+    and 2K calls alternate, so a drift of the card's or the host's speed
+    (the first calls after an idle spell can run slower) weighs on both.
 
     The K -> 2K scaling guard stays: if the 2K loop does not take more than
-    1.05x the K loop, the difference would be noise, so it raises."""
+    1.05x the K loop, the difference would be noise. The measurement is then
+    taken anew at twice the K, up to `attempts` measurements in all, and it
+    raises if none scaled."""
     import numpy as np
 
     shift = itertools.count(1001)  # disjoint from timed_scan's shifts
-
-    def median_wall(make_fn):
-        fn = _reduced(make_fn)
-        _timed_value_fetch(fn, op)  # warm-up
-        walls = [_timed_value_fetch(fn, _fresh_rolled(op, next(shift))) for _ in range(repeats)]
-        return float(np.median(walls))
-
-    t1 = median_wall(make_fn_of_k(iters))
-    t2 = median_wall(make_fn_of_k(2 * iters))
-    if t2 <= t1 * 1.05:
-        raise RuntimeError(
-            f"K->2K wall did not scale (K={iters}: {t1 * 1e3:.3f} ms, "
-            f"2K: {t2 * 1e3:.3f} ms): the signal is below the timer's noise; "
-            "increase iters")
-    return (t2 - t1) / iters
+    k = iters
+    tried = []
+    for _ in range(attempts):
+        fns = (_reduced(make_fn_of_k(k)), _reduced(make_fn_of_k(2 * k)))
+        for fn in fns:
+            _timed_value_fetch(fn, op)  # warm-up
+        walls = [[], []]
+        for _ in range(repeats):
+            for fn, w in zip(fns, walls):
+                w.append(_timed_value_fetch(fn, _fresh_rolled(op, next(shift))))
+        t1, t2 = (float(np.median(w)) for w in walls)
+        if t2 > t1 * 1.05:
+            return (t2 - t1) / k
+        tried.append(f"K={k}: {t1 * 1e3:.3f} ms, 2K: {t2 * 1e3:.3f} ms")
+        k *= 2
+    raise RuntimeError(
+        f"K->2K wall did not scale in {attempts} measurements ({'; '.join(tried)}): "
+        "the signal is below the timer's noise; increase iters")
