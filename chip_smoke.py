@@ -111,7 +111,30 @@ toolkit. Phases, each of which raises on failure:
      `_eval_cache`), the NMS kernel's launch count zeroed and read around
      each eval; the final checkpoint reloads through
      `load_inference_variables` equal to the trained EMA fused, and its
-     detections on the card equal the plain CPU NMS's on the card's decode.
+     detections on the card equal the plain CPU NMS's on the card's decode;
+  15. the zoo at published width and depth (yolov6m, yolov6l, yolov6s6,
+     yolov6l6, base/yolov6s_base, repopt/yolov6s_hs and repopt/yolov6s_opt,
+     each fused, every parameter drawn from a seed): bf16 `Inferer._run` at
+     640x640, batch 32, with the NMS kernel's launches read around it; fp32
+     decode at batch 2 against the port on the CPU; detections equal the
+     plain CPU NMS's on the card's decode;
+  15b. yolov6m under --int8: calibrated on two batches, the pallas plan at
+     batch 32 (int8_conv launches equal the calibrated convs the plan runs),
+     module replay card against CPU bit for bit, the dots plan at batch 8
+     (mxu_matmul launches counted, detections equal the conv plan's); the
+     conv_silu yolov6l's plan emits no handoff;
+  16. a yolov6m train step (ATSS, giou, DFL): fp32 at batch 2 against the
+     CPU from one state, then ms per step by part and peak memory under
+     autocast bf16;
+  17. RepOpt: 2 hyper-search steps of yolov6s_hs, its scales saved and
+     loaded, yolov6s_opt re-initialized from them with its gradient masks,
+     3 masked steps at 640 x 32, one fp32 step at batch 2 against the CPU,
+     and the Trainer's RepOpt path for an epoch of 2 steps;
+  18. distillation: yololpn from a yololps teacher whose checkpoint the port
+     writes, the KD terms card against CPU in fp32 and the step time; then
+     tools.sensitivity's analysis of yololpn at 320 px on 32 frames labelled
+     with that float model's own detections: the baseline mAP is above 0 and
+     at least one conv's drop is not 0.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -247,8 +270,10 @@ def mask_cases(rng):
 @torch.no_grad()
 def randomize_parameters(model: torch.nn.Module, gen: torch.Generator, gain: float = 0.7):
     """Every kernel He-style (std gain/sqrt(fan_in)), BN scale and variance in
-    [0.5, 1.5], BN shift and mean ~N(0, 0.1), conv biases init + N(0, 0.1): so
-    the head scores vary and activations stay finite through the deep graph."""
+    [0.5, 1.5], BN shift and mean ~N(0, 0.1), conv biases init + N(0, 0.1),
+    and every other parameter (a ScaleLayer's scale, a BottleRep's alpha)
+    init + N(0, 0.1): so the head scores vary and activations stay finite
+    through the deep graph."""
     def normal(t, std):
         return torch.randn(t.shape, generator=gen) * std
 
@@ -264,6 +289,9 @@ def randomize_parameters(model: torch.nn.Module, gen: torch.Generator, gain: flo
             m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=gen))
             m.bias.copy_(normal(m.bias, 0.1))
             m.running_mean.copy_(normal(m.running_mean, 0.1))
+        else:
+            for p in m.parameters(recurse=False):
+                p.add_(normal(p, 0.1))
 
 
 def frames(rng):
@@ -1003,6 +1031,27 @@ def labelled_frames(rng, n, size, max_boxes=32):
     return imgs, labels, masks
 
 
+def self_labels(preds, size, max_boxes):
+    """Labels (n, max_boxes, 20) and masks, as labelled_frames gives them,
+    of each frame's detections (k, 28) in pixels: the first max_boxes of
+    them (the highest scores), each clipped to the frame."""
+    labels = np.zeros((len(preds), max_boxes, 20), np.float32)
+    labels[..., :8] = -1
+    masks = np.zeros((len(preds), max_boxes), np.float32)
+    for i, det in enumerate(preds):
+        det = det[:max_boxes]
+        box = np.clip(det[:, :4], 0, size) / size
+        keep = (box[:, 2] - box[:, 0] > 1e-3) & (box[:, 3] - box[:, 1] > 1e-3)
+        det, box = det[keep], box[keep]
+        k = len(det)
+        labels[i, :k, :8] = det[:, 20:28]
+        labels[i, :k, 8:12] = np.concatenate([(box[:, :2] + box[:, 2:]) / 2,
+                                              box[:, 2:] - box[:, :2]], 1)
+        labels[i, :k, 12:20] = np.clip(det[:, 4:12], 0, size) / size
+        masks[i, :k] = 1
+    return labels, masks
+
+
 def loader_batches(imgs, labels, masks, batch):
     """The loader's batches (images, labels, masks, paths, shapes), the last
     one short."""
@@ -1122,10 +1171,11 @@ def fg_report(labels, masks, lcfg, fg_a, fg_b, dev):
                   f"threshold card {float(thr['cuda'][0][bi, mi, 0])!r} cpu {float(thr['cpu'][0][bi, mi, 0])!r}")
 
 
-def phase_train(results, card, dev, train_model, cfg):
-    """13. The train forward, ATSS assignment, loss and backward of yololps:
-    fp32 parity of the card with the CPU at batch 2, then times at batch 32
-    under autocast(bfloat16)."""
+def phase_train(results, card, dev, train_model, cfg, name="yololps", n_time=BATCH, key="train",
+                seed=SEED + 13):
+    """13 (and 16). The train forward, ATSS assignment, loss and backward of
+    `name`: fp32 parity of the card with the CPU at batch 2, then times at
+    batch `n_time` under autocast(bfloat16); results under `key`."""
     import copy
 
     from yololp_tpu_torch.losses.loss import LossConfig, assign, compute_loss, loss_terms
@@ -1135,7 +1185,7 @@ def phase_train(results, card, dev, train_model, cfg):
     lcfg = LossConfig(img_size=(IMG, IMG), strides=tuple(head["strides"]),
                       use_dfl=bool(head["use_dfl"]), reg_max=int(head["reg_max"]),
                       iou_type=head["iou_type"], assigner="atss")
-    imgs, labels, masks = labelled_frames(np.random.default_rng(SEED + 13), BATCH, IMG)
+    imgs, labels, masks = labelled_frames(np.random.default_rng(seed), n_time, IMG)
 
     # parity: fp32 with TF32 off, batch 2, card against the CPU
     torch.backends.cudnn.allow_tf32 = False
@@ -1163,7 +1213,7 @@ def phase_train(results, card, dev, train_model, cfg):
     items_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp(min=1e-12)).max())
     total_err = float((got[0] - want[0]).abs() / want[0].abs())
     grad_err = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got[3:], want[3:])]
-    print(f"train parity, yololps {IMG}px fp32 (TF32 off), batch {TRAIN_PARITY_BATCH}, card vs CPU "
+    print(f"train parity, {name} {IMG}px fp32 (TF32 off), batch {TRAIN_PARITY_BATCH}, card vs CPU "
           f"({time.perf_counter() - t0:.1f} s): fg masks equal ({int(want[2].sum())} fg anchors); "
           f"loss items {[round(float(v), 6) for v in want[1]]}, max rel diff {items_err:.3g}, total "
           f"{float(want[0]):.6f} rel diff {total_err:.3g}; d total / d reg, d cor: max |diff| / max "
@@ -1203,17 +1253,17 @@ def phase_train(results, card, dev, train_model, cfg):
     peak = torch.cuda.max_memory_allocated(dev)
     parts = dict(zip(("forward", "assign", "loss", "backward"), np.median(steps, 0).tolist()))
     step_ms = float(np.median(steps.sum(1)))
-    print(f"[{card}] train step (forward, ATSS assign, loss, backward; no optimizer), yololps "
-          f"{IMG}px batch {BATCH}, autocast bf16 with fp32 params: {step_ms:.3f} ms per step "
-          f"(median of {TRAIN_STEPS}, CUDA events), {BATCH * 1e3 / step_ms:.1f} img/s; ms by part "
+    print(f"[{card}] train step (forward, ATSS assign, loss, backward; no optimizer), {name} "
+          f"{IMG}px batch {n_time}, autocast bf16 with fp32 params: {step_ms:.3f} ms per step "
+          f"(median of {TRAIN_STEPS}, CUDA events), {n_time * 1e3 / step_ms:.1f} img/s; ms by part "
           f"{json.dumps({k: round(v, 3) for k, v in parts.items()})}; max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB")
-    results["train"] = dict(parity=dict(items=want[1].tolist(), items_rel_err=items_err,
-                                        total_rel_err=total_err, grad_err=grad_err,
-                                        fg=int(want[2].sum())),
-                            step_ms=step_ms, img_s=BATCH * 1e3 / step_ms, parts_ms=parts,
-                            steps_ms=steps.tolist(), peak_bytes=peak)
-    return results["train"]
+    results[key] = dict(parity=dict(items=want[1].tolist(), items_rel_err=items_err,
+                                    total_rel_err=total_err, grad_err=grad_err,
+                                    fg=int(want[2].sum())),
+                        step_ms=step_ms, img_s=n_time * 1e3 / step_ms, parts_ms=parts,
+                        steps_ms=steps.tolist(), peak_bytes=peak)
+    return results[key]
 
 
 def state_numpy(state, which):
@@ -1550,6 +1600,518 @@ def phase_training(results, card, dev, train_model, cfg, amax, eval_frames):
     return out
 
 
+# ---------------- phases 15-18: the model zoo, RepOpt, distillation ----------------
+
+# phase 15's models at published width and depth: every backbone, every neck
+# a config reaches, every training mode, the DFL head and the 4-level head
+ZOO = ("yolov6m", "yolov6l", "yolov6s6", "yolov6l6", "base/yolov6s_base", "repopt/yolov6s_hs",
+       "repopt/yolov6s_opt")
+ZOO_INT8_DOTS_BATCH = 8
+ZOO_TRAIN_BATCH = 16
+REPOPT_STEPS, REPOPT_HS_BATCH = 3, 8
+# phase 18: the KD terms of one batch, card vs CPU in fp32
+KD_RTOL = 1e-3
+SENS_IMG, SENS_IMAGES = 320, 32
+
+
+def zoo_model(cfg, seed):
+    """The train graph of `cfg` (a config or a built-in name) on the CPU,
+    every parameter and BN statistic drawn from `seed`."""
+    from yololp_tpu_torch.models.yolo import build_model
+    from yololp_tpu_torch.utils.config import Config
+
+    cfg = Config.named(cfg) if isinstance(cfg, str) else cfg
+    train = build_model(cfg, seed=seed, device="cpu")
+    randomize_parameters(train, torch.Generator().manual_seed(seed))
+    return cfg, train
+
+
+def full_k_gate(pred):
+    """The conf gate that 2K anchors of every image pass (the NMS kernel
+    walks a full K)."""
+    from yololp_tpu_torch.ops.nms import select_candidates
+
+    anchors = pred.shape[1]
+    _, score_all, _ = select_candidates(pred, 0.0, anchors)
+    return float(score_all[:, min(2 * TOPK, anchors) - 1].min())
+
+
+def check_nms_on_decode(pred, kw, what):
+    """The card's NMS on the card's decode equals the plain CPU NMS on it."""
+    from yololp_tpu_torch.ops.nms import non_max_suppression
+
+    card_out = non_max_suppression(pred, **kw)
+    cpu_out = non_max_suppression(pred.cpu(), **kw)
+    for name, a, b in zip(("det", "valid", "num"), card_out, cpu_out):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{what}: card NMS != plain CPU NMS on the card's decode ({name})")
+    return cpu_out
+
+
+def phase_zoo(results, card, dev, batch):
+    """15. Deploy inference of the zoo at published width and depth."""
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.layers.fuse import fuse_model
+    from yololp_tpu_torch.ops import cuda_nms
+
+    out = {}
+    for i, name in enumerate(ZOO):
+        t0 = time.perf_counter()
+        cfg, train = zoo_model(name, SEED + 150 + i)
+        weights = fuse_model(train).state_dict()
+        n_params = sum(p.numel() for p in train.parameters())
+        del train
+        inferer = Inferer(".", weights, cfg, img_size=IMG, half=True, iou_thres=0.45,
+                          max_det=1000, device=dev)
+        strides = (8, 16, 32) if cfg["model"]["head"]["num_layers"] == 3 else (8, 16, 32, 64)
+        anchors = sum((IMG // s) ** 2 for s in strides)
+        pred = inferer.predict(batch)
+        if pred.shape != (BATCH, anchors, 290) or not torch.isfinite(pred).all():
+            raise AssertionError(f"{name}: decode {tuple(pred.shape)}, finite "
+                                 f"{bool(torch.isfinite(pred).all())}")
+        inferer.conf_thres = full_k_gate(pred)
+        inferer.warmup()
+        cuda_nms.launches = 0
+        det, valid, num = inferer._run(batch)
+        torch.cuda.synchronize()
+        launches = cuda_nms.launches
+        if launches < 1 or int(num.min()) < 1:
+            raise AssertionError(f"{name}: greedy_nms launches {launches}, kept {int(num.min())}")
+        ms = cuda_ms(lambda: inferer._run(batch), 2)
+        img_s = BATCH * 1e3 / float(np.median(ms))
+        kw = dict(conf_thres=inferer.conf_thres, iou_thres=0.45, max_det=1000)
+        kept = check_nms_on_decode(pred, kw, name)[2]
+        # fp32 (TF32 off) at batch 2: the card against the port on the CPU
+        inf32 = Inferer(".", weights, cfg, img_size=IMG, half=False, device=dev)
+        cpu32 = Inferer(".", weights, cfg, img_size=IMG, half=False, device="cpu")
+        p_card, p_cpu = inf32.predict(batch[:2]).cpu(), cpu32.predict(batch[:2])
+        err_px = float((p_card[..., :13] - p_cpu[..., :13]).abs().max())
+        err_score = float((p_card[..., 13:] - p_cpu[..., 13:]).abs().max())
+        ok = (torch.allclose(p_card[..., :13], p_cpu[..., :13], rtol=FP32_RTOL, atol=FP32_ATOL_PX)
+              and torch.allclose(p_card[..., 13:], p_cpu[..., 13:], rtol=0, atol=FP32_ATOL_SCORE))
+        print(f"[{card}] zoo {name} ({cfg['model']['backbone']['type']} + "
+              f"{cfg['model']['neck']['type']}, {len(strides)} levels, "
+              f"{cfg.get('training_mode', 'repvgg')}, dfl {bool(cfg['model']['head']['use_dfl'])}; "
+              f"{n_params / 1e6:.1f} M parameters in the train graph), fused, bf16 {IMG}px batch "
+              f"{BATCH}: {img_s:.1f} img/s ({np.median(ms):.3f} ms a batch, CUDA events); "
+              f"greedy_nms launches {launches}; card NMS == plain CPU NMS, kept "
+              f"{int(kept.min())}..{int(kept.max())}; fp32 batch 2 card (TF32 off) vs CPU "
+              f"{err_px:.3g} px, {err_score:.3g} score ({time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            raise AssertionError(f"{name}: fp32 decode card vs CPU {err_px} px, {err_score} score "
+                                 f"beyond rtol {FP32_RTOL} + {FP32_ATOL_PX} px / {FP32_ATOL_SCORE}")
+        out[name] = dict(img_s=img_s, median_ms=float(np.median(ms)), runs_ms=ms,
+                         nms_launches=launches, fp32_err_px=err_px, fp32_err_score=err_score,
+                         params=n_params, anchors=anchors)
+        if name == "yolov6m":  # beside phase 15b's int8 profile of the same model
+            out[name]["profile"] = profile_batch(lambda: inferer._run(batch), card,
+                                                 label="yolov6m bf16")
+        del inferer, inf32, cpu32, pred, p_card
+        torch.cuda.empty_cache()
+    results["zoo"] = out
+    return out
+
+
+def phase_zoo_int8(results, card, dev, batch):
+    """15b. yolov6m under --int8 (pallas, conv and dots plans) and the
+    conv_silu yolov6l's plan."""
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.layers.fuse import fuse_model
+    from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
+    from yololp_tpu_torch.quant import int8_infer
+    from yololp_tpu_torch.quant.quantize import calibrate
+
+    cfg, train = zoo_model("yolov6m", SEED + 151)
+    weights = fuse_model(train).state_dict()
+    del train
+    inf = Inferer(".", weights, cfg, img_size=IMG, half=True, iou_thres=0.45, max_det=1000,
+                  device=dev)
+    batch2 = np.ascontiguousarray(batch[::-1, :, ::-1])  # a second batch: the frames mirrored
+    t0 = time.perf_counter()
+    amax = calibrate(inf.model, [batch, batch2], method="max", device=dev)
+    kw = dict(iou_thres=0.45, max_det=1000, device=dev)
+    conf = full_k_gate(int8_infer.make_int8_infer_fn(inf.model, inf.variables, amax, with_nms=False,
+                                                     conv_impl="pallas", **kw)(batch))
+    run = int8_infer.make_int8_infer_fn(inf.model, inf.variables, amax, conf_thres=conf,
+                                        conv_impl="pallas", **kw)
+    mods = [m for m in run.int8_model.modules()
+            if isinstance(m, (int8_infer.Int8Conv2d, int8_infer.Int8RepBlock))]
+    n_links = sum(len(m.plan[1]) if isinstance(m, int8_infer.Int8RepBlock) else 1 for m in mods)
+    run(batch)
+    log = LaunchLog(run.int8_model, int8_infer)
+    cuda_conv.launches = cuda_nms.launches = 0
+    det, valid, num = run(batch)
+    torch.cuda.synchronize()
+    launches, nms_launches = cuda_conv.launches, cuda_nms.launches
+    log.remove()
+    if launches != n_links or launches != len(log.launches) or nms_launches != 1:
+        raise AssertionError(f"yolov6m int8 pallas: int8_conv launches {launches}, the plan's "
+                             f"calibrated convs {n_links}, recorded {len(log.launches)}; "
+                             f"greedy_nms {nms_launches}")
+    chains = sum(isinstance(m, int8_infer.Int8RepBlock) for m in mods)
+    ms = cuda_ms(lambda: run(batch), 2)
+    img_s = BATCH * 1e3 / float(np.median(ms))
+    profile = profile_batch(lambda: run(batch), card, label="yolov6m int8 pallas")
+    conv_ms = sum(v for k, v in profile["by_name"].items() if "int8_conv_kernel" in k)
+    print(f"[{card}] zoo int8, yolov6m {IMG}px, pallas plan, batch {BATCH}: {len(amax)} conv inputs "
+          f"calibrated (max, 2 batches) in {time.perf_counter() - t0:.1f} s; int8_conv launches "
+          f"{launches} == the {n_links} calibrated convs the plan runs ({chains} RepBlock chains: a "
+          f"BepC3's BottleRep stage runs conv by conv), greedy_nms {nms_launches}; {img_s:.1f} img/s "
+          f"({np.median(ms):.3f} ms a batch); kept {int(num.min())}..{int(num.max())}; "
+          f"int8_conv kernels {conv_ms:.3f} ms of the profiled batch's {profile['window_ms']:.3f}")
+
+    # module replay: every int8 module of the CPU port, fed the card's input,
+    # gives the card's output bit for bit (conv plan, fp32, TF32 off)
+    inf32 = Inferer(".", weights, cfg, img_size=IMG, half=False, device=dev)
+    cpu32 = Inferer(".", weights, cfg, img_size=IMG, half=False, device="cpu")
+    kw32 = dict(with_nms=False, conv_impl="conv")
+    f_card = int8_infer.make_int8_infer_fn(inf32.model, inf32.variables, amax, device=dev, **kw32)
+    f_cpu = int8_infer.make_int8_infer_fn(cpu32.model, cpu32.variables, amax, device="cpu", **kw32)
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, a, o, n=n: seen.append((n, a[0], o)))
+             for n, m in f_card.int8_model.named_modules()
+             if isinstance(m, (int8_infer.Int8Conv2d, int8_infer.Int8RepBlock))]
+    f_card(batch[:1])
+    for h in hooks:
+        h.remove()
+    cpu_mods = dict(f_cpu.int8_model.named_modules())
+    with torch.inference_mode():
+        for n, x_in, y in seen:
+            if not torch.equal(cpu_mods[n](x_in.cpu()), y.cpu()):
+                raise AssertionError(f"yolov6m int8 module {n}: the CPU port on the card's input "
+                                     "!= the card")
+    print(f"zoo int8 yolov6m, conv plan fp32: each of the {len(seen)} int8 modules of the CPU port, "
+          f"fed the card's own input, gives the card's output bit for bit")
+    del inf32, cpu32, f_card, f_cpu, seen
+
+    # the dots plan at batch 8: its matmuls counted, its detections the conv plan's
+    small = batch[:ZOO_INT8_DOTS_BATCH]
+    plans = {}
+    for impl in ("dots", "conv"):
+        r = int8_infer.make_int8_infer_fn(inf.model, inf.variables, amax, conf_thres=conf,
+                                          conv_impl=impl, **kw)
+        r(small)
+        cuda_conv.launches = cuda_matmul.launches = 0
+        outs = [t.cpu() for t in r(small)]
+        torch.cuda.synchronize()
+        plans[impl] = (outs, cuda_conv.launches, cuda_matmul.launches)
+    dots_counts = plans["dots"][1:]
+    for name, a, b in zip(("det", "valid", "num"), plans["dots"][0], plans["conv"][0]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"yolov6m int8: the dots plan's detections != the conv plan's ({name})")
+    if plans["dots"][2] < 1 or plans["conv"][2] != 0:
+        raise AssertionError(f"mxu_matmul launches: dots {plans['dots'][2]}, conv {plans['conv'][2]}")
+    print(f"zoo int8 yolov6m, batch {ZOO_INT8_DOTS_BATCH}: dots plan mxu_matmul launches "
+          f"{plans['dots'][2]} (int8_conv {plans['dots'][1]}), conv plan int8_conv "
+          f"{plans['conv'][1]}; detections equal bit for bit")
+    del inf, run, plans
+    torch.cuda.empty_cache()
+
+    # yolov6l (conv_silu): no handoff from a SiLU producer
+    cfg_l, train_l = zoo_model("yolov6l", SEED + 152)
+    weights_l = fuse_model(train_l).state_dict()
+    del train_l
+    inf_l = Inferer(".", weights_l, cfg_l, img_size=IMG, half=True, iou_thres=0.45, max_det=1000,
+                    device=dev)
+    amax_l = calibrate(inf_l.model, [small], method="max", device=dev)
+    run_l = int8_infer.make_int8_infer_fn(inf_l.model, inf_l.variables, amax_l, conf_thres=0.0,
+                                          conv_impl="conv", **kw)
+    handed = [n for n, m in run_l.int8_model.named_modules()
+              if isinstance(m, int8_infer.Int8Conv2d) and m.handoff]
+    plan = int8_infer.graph_handoffs(amax_l, {p: None for p in amax_l}, relu_acts=False)
+    if not all("Bifusion" in n and n.endswith(".cv2.conv") for n in handed) or len(handed) != len(plan):
+        raise AssertionError(f"yolov6l (conv_silu) handoffs: {handed}")
+    cuda_conv.launches = 0
+    out_l = run_l(small)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out_l[0]).all() or cuda_conv.launches < 1:
+        raise AssertionError("yolov6l int8: non-finite detections or no int8_conv launch")
+    print(f"zoo int8 yolov6l (conv_silu), conv plan, batch {ZOO_INT8_DOTS_BATCH}: int8_conv launches "
+          f"{cuda_conv.launches}; handoffs only from ReLU producers: {len(handed)} "
+          f"(the BiFusion cv2 -> downsample seams), none from a SiLU conv")
+    results["zoo_int8"] = dict(launches=launches, planned=n_links, chains=chains,
+                               nms_launches=nms_launches, img_s=img_s, runs_ms=ms,
+                               profile=profile, kernel_profile_ms=conv_ms,
+                               dots_launches=dict(int8_conv=dots_counts[0],
+                                                  mxu_matmul=dots_counts[1]),
+                               yolov6l_handoffs=len(handed))
+    del inf_l, run_l
+    torch.cuda.empty_cache()
+
+
+def solver_cfg_for(cfg):
+    """Phase 14's solver for `cfg`: its own, warmup_bias_lr 0.01, 10 epochs
+    of 100 steps."""
+    from yololp_tpu_torch.solver.build import SolverConfig
+
+    sol = cfg["solver"]
+    return SolverConfig(lr0=sol["lr0"], lrf=sol["lrf"], momentum=sol["momentum"],
+                        weight_decay=sol["weight_decay"], warmup_epochs=sol["warmup_epochs"],
+                        warmup_momentum=sol["warmup_momentum"], warmup_bias_lr=0.01,
+                        lr_scheduler=sol["lr_scheduler"], epochs=10, steps_per_epoch=100)
+
+
+def loss_cfg_for(cfg):
+    """Phase 13's loss for `cfg`: its head, ATSS, at IMG."""
+    from yololp_tpu_torch.losses.loss import LossConfig
+
+    head = cfg["model"]["head"]
+    return LossConfig(img_size=(IMG, IMG), strides=tuple(head["strides"]),
+                      use_dfl=bool(head["use_dfl"]), reg_max=int(head["reg_max"]),
+                      iou_type=head["iou_type"], assigner="atss")
+
+
+def one_state_parity(model, lcfg, scfg, imgs, labels, masks, what, grad_masks):
+    """One masked optimizer step at batch 2 in fp32 (TF32 off) on the card
+    and on the CPU from one state: (loss rel diff, worst update / bound)."""
+    import copy
+
+    from yololp_tpu_torch.core.train_step import init_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = TRAIN_PARITY_BATCH
+    states, items = [], []
+    for d in (torch.device(DEVICE), torch.device("cpu")):
+        m = copy.deepcopy(model).to(d)
+        st = init_train_state(m)
+        start = {w: state_numpy(st, w) for w in ("params", "momentum")}
+        st, total, it = make_train_step(
+            m, lcfg, scfg, batch_size=n, grad_masks={k: v.to(d) for k, v in grad_masks.items()})(
+            st, imgs[:n], labels[:n], masks[:n])
+        states.append(st)
+        items.append(torch.cat([total.reshape(1), it]).cpu().numpy())
+    err = float(np.max(np.abs(items[0] - items[1]) / np.maximum(np.abs(items[1]), 1e-12)))
+    worst = max(update_errors(state_numpy(states[0], w), state_numpy(states[1], w), start[w])
+                for w in ("params", "momentum"))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    print(f"{what}: one step from one state, fp32 (TF32 off) batch {n}, card vs CPU: [total + 7 "
+          f"items] {json.dumps(np.round(items[1], 6).tolist())}, max rel diff {err:.3g}; worst "
+          f"update / bound {worst[0]:.3g} ({worst[1]})")
+    if err > TRAIN_LOSS_RTOL or worst[0] > 1.0:
+        raise AssertionError(f"{what}: beyond rtol {TRAIN_LOSS_RTOL} (loss) / the update bound")
+    return err, worst
+
+
+def timed_steps(step, state, imgs, labels, masks, n, reps):
+    """ms per call of the train step at batch `n`, by CUDA events (after
+    one warm-up step)."""
+    step(state, imgs[:n], labels[:n], masks[:n])
+    times = []
+    for i in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, total, _ = step(state, imgs[:n], labels[:n], masks[:n])
+        e1.record()
+        e1.synchronize()
+        if not torch.isfinite(total):
+            raise AssertionError("non-finite loss in a timed step")
+        times.append(e0.elapsed_time(e1))
+    return times
+
+
+def phase_repopt(results, card, dev, eval_frames):
+    """17. RepOpt: 2 hyper-search steps of yolov6s_hs, its scales saved and
+    loaded, yolov6s_opt re-initialized from them and trained with masks;
+    then the Trainer's RepOpt path for an epoch of 2 steps."""
+    import copy
+    import tempfile
+    import types
+
+    from yololp_tpu_torch.core.engine import Trainer
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.core.train_step import init_train_state, make_train_step
+    from yololp_tpu_torch.ops import cuda_nms
+    from yololp_tpu_torch.solver.repopt import (extract_scales, gradient_masks, load_scales,
+                                                reinitialize, save_scales)
+    from yololp_tpu_torch.utils.config import Config
+
+    out = {}
+    imgs, labels, masks = labelled_frames(np.random.default_rng(SEED + 17), 2 * BATCH, IMG)
+    hs_cfg, hs = zoo_model("repopt/yolov6s_hs", SEED + 170)
+    hs = hs.to(dev).to(memory_format=torch.channels_last)
+    st = init_train_state(hs)
+    step = make_train_step(hs, loss_cfg_for(hs_cfg), solver_cfg_for(hs_cfg),
+                           batch_size=REPOPT_HS_BATCH, dtype=torch.bfloat16)
+    for i in range(2):
+        sl = slice(i * REPOPT_HS_BATCH, (i + 1) * REPOPT_HS_BATCH)
+        st, total, _ = step(st, imgs[sl], labels[sl], masks[sl])
+        if not torch.isfinite(total):
+            raise AssertionError("non-finite hyper-search loss")
+    scales = extract_scales(hs.state_dict())
+    del hs, st, step
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "yolov6s_scales.msgpack")
+        save_scales(scales, path)
+        loaded = load_scales(path)
+        if len(loaded) != len(scales) or not all(
+                np.array_equal(a, b) for x, y in zip(loaded, scales) for a, b in zip(x, y)):
+            raise AssertionError("scales written and read back differ")
+        opt_cfg = Config.named("repopt/yolov6s_opt")
+        opt_cfg["scales"] = path
+        _, opt = zoo_model(opt_cfg, SEED + 171)
+        params = dict(opt.named_parameters())
+        new = reinitialize(params, loaded, generator=torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            for k, v in new.items():
+                params[k].copy_(v)
+        grad_masks = gradient_masks(params, loaded)
+        print(f"RepOpt: yolov6s_hs 2 steps (batch {REPOPT_HS_BATCH}, bf16) -> {len(scales)} scale "
+              f"tuples ({sum(len(x) == 3 for x in scales)} with identity), saved and loaded; "
+              f"yolov6s_opt: {len(new)} RealVGG kernels re-initialized, {len(grad_masks)} masks")
+        lcfg, scfg = loss_cfg_for(opt_cfg), solver_cfg_for(opt_cfg)
+        out["parity"] = one_state_parity(opt, lcfg, scfg, imgs, labels, masks,
+                                         "RepOpt yolov6s_opt masked step", grad_masks)
+        model = copy.deepcopy(opt).to(dev).to(memory_format=torch.channels_last)
+        st = init_train_state(model)
+        step = make_train_step(model, lcfg, scfg, batch_size=BATCH, dtype=torch.bfloat16,
+                               grad_masks={k: v.to(dev) for k, v in grad_masks.items()})
+        ms = timed_steps(step, st, imgs, labels, masks, BATCH, REPOPT_STEPS)
+        print(f"[{card}] RepOpt masked train step, yolov6s_opt {IMG}px batch {BATCH}, autocast bf16: "
+              f"{float(np.median(ms)):.3f} ms per step (median of {REPOPT_STEPS}, CUDA events), "
+              f"{BATCH * 1e3 / float(np.median(ms)):.1f} img/s")
+        out.update(step_ms=float(np.median(ms)), steps_ms=ms)
+        del model, st, step
+        torch.cuda.empty_cache()
+
+        # the Trainer's RepOpt path: 1 epoch of 2 steps over memo frames
+        img_dir = write_memo_dataset(os.path.join(tmp, "data"), imgs, labels, masks)
+        tcfg = copy.deepcopy(opt_cfg)
+        tcfg["data_aug"] = {k: 0.0 for k in opt_cfg["data_aug"]}
+        args = types.SimpleNamespace(
+            img_size=IMG, batch_size=BATCH, epochs=1, workers=0,
+            save_dir=os.path.join(tmp, "run"), seed=SEED, bf16=True, cache_device=True,
+            assigner=None, stop_aug_last_n_epoch=15, eval_interval=1, heavy_eval_range=50,
+            quant=False, calib=False, distill=False, device=dev, epochs_per_dispatch=1)
+        t0 = time.perf_counter()
+        trainer = Trainer(args, tcfg, {"train": img_dir, "val": img_dir})
+        ev_imgs, ev_labels, ev_masks = (a[:BATCH] for a in eval_frames)
+        ev = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=0.0, device=dev)
+        eval_model = trainer._deploy_model()
+        trainer._eval_cache = (eval_model, ev, loader_batches(ev_imgs, ev_labels, ev_masks, BATCH),
+                               ev.make_infer_fn(eval_model))
+        cuda_nms.launches = 0
+        trainer.train()
+        torch.cuda.synchronize()
+        log = [json.loads(line) for line in open(trainer.log_path)]
+        print(f"[{card}] Trainer, repopt/yolov6s_opt with a scales file, {IMG}px batch {BATCH}, 1 "
+              f"epoch of {trainer.steps_per_epoch} steps: {time.perf_counter() - t0:.1f} s; weight "
+              f"decay {trainer.solver_cfg.weight_decay:g}; greedy_nms launches in its eval "
+              f"{cuda_nms.launches}; log {json.dumps(log)}")
+        if len(log) != 1 or cuda_nms.launches < 1 or not all(
+                np.isfinite(v) for k, v in log[0].items() if k.startswith("train/")):
+            raise AssertionError(f"RepOpt Trainer: log {log}, NMS launches {cuda_nms.launches}")
+        out["trainer"] = dict(log=log, nms_launches=cuda_nms.launches)
+    results["repopt"] = out
+    return out
+
+
+def phase_distill(results, card, dev):
+    """18. Distillation of yololpn from a yololps teacher checkpoint written
+    by the port, then tools.sensitivity's analysis on yololpn at 320 px."""
+    import tempfile
+
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.core.train_step import init_train_state, make_train_step
+    from yololp_tpu_torch.layers.fuse import fuse_model
+    from yololp_tpu_torch.losses.distill import distill_loss
+    from yololp_tpu_torch.losses.loss import compute_loss
+    from yololp_tpu_torch.models.yolo import Model
+    from yololp_tpu_torch.ops.division import unit_pixels
+    from yololp_tpu_torch.quant.quantize import calibrate
+    from yololp_tpu_torch.tools import sensitivity
+    from yololp_tpu_torch.utils.checkpoint import load_checkpoint_raw, save_checkpoint
+    from yololp_tpu_torch.utils.convert import (jax_to_state_dict, load_state_dict_strict,
+                                                state_dict_to_jax)
+
+    out = {}
+    imgs, labels, masks = labelled_frames(np.random.default_rng(SEED + 18), BATCH, IMG)
+    s_cfg, student = zoo_model("yololpn", SEED + 180)
+    t_cfg, t_train = zoo_model("yololps", SEED + 181)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "teacher.msgpack")
+        save_checkpoint({"format": "train", "variables": state_dict_to_jax(t_train.state_dict())},
+                        path)
+        teacher = Model(t_cfg)
+        load_state_dict_strict(teacher, jax_to_state_dict(load_checkpoint_raw(path)["variables"]))
+    del t_train
+    lcfg, scfg = loss_cfg_for(s_cfg), solver_cfg_for(s_cfg)
+    dcfg = dict(s_cfg["model"]["head"].get("distill_weight") or {})
+
+    # the KD terms of one batch of 2 in fp32 (TF32 off), card vs CPU, on the
+    # CPU's fg mask
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = TRAIN_PARITY_BATCH
+    terms, fg = [], None
+    for d in ("cpu", dev):
+        x = unit_pixels(torch.from_numpy(imgs[:n]).to(d).permute(0, 3, 1, 2),
+                        torch.float32).contiguous()
+        with torch.no_grad():
+            s_out = student.to(d).train()(x)
+            t_out = teacher.to(d).train()(x)
+            if fg is None:
+                fg = compute_loss(s_out, torch.from_numpy(labels[:n]), torch.from_numpy(masks[:n]),
+                                  lcfg, with_fg=True)[2]
+            kd = distill_loss(s_out, t_out, fg.to(d), temperature=float(dcfg.get("temperature", 20.0)),
+                              use_dfl=lcfg.use_dfl, reg_max=lcfg.reg_max)
+        terms.append([float(t) for t in kd])
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    kd_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(terms[1], terms[0]))
+    print(f"distill yololpn <- yololps (teacher checkpoint written by the port), fp32 batch {n}, "
+          f"{int(fg.sum())} fg anchors: KD terms (cls, dfl) CPU {terms[0]}, card {terms[1]}, max "
+          f"rel diff {kd_err:.3g}")
+    if not (terms[0][0] > 0 and kd_err <= KD_RTOL):
+        raise AssertionError(f"distill KD terms card vs CPU beyond rtol {KD_RTOL}: {terms}")
+
+    # the distillation train step at batch 32, bf16
+    student = student.to(dev).to(memory_format=torch.channels_last)
+    teacher = teacher.to(dev).to(memory_format=torch.channels_last)
+    st = init_train_state(student)
+    step = make_train_step(student, lcfg, scfg, batch_size=BATCH, teacher=teacher, distill_cfg=dcfg,
+                           dtype=torch.bfloat16)
+    ms = timed_steps(step, st, imgs, labels, masks, BATCH, REPOPT_STEPS)
+    print(f"[{card}] distillation train step (yololpn student, yololps teacher forward), {IMG}px "
+          f"batch {BATCH}, autocast bf16: {float(np.median(ms)):.3f} ms per step (median of "
+          f"{REPOPT_STEPS}, CUDA events), {BATCH * 1e3 / float(np.median(ms)):.1f} img/s")
+    out.update(kd_terms=dict(cpu=terms[0], card=terms[1], rel_err=kd_err),
+               step_ms=float(np.median(ms)), steps_ms=ms)
+    del st, step, teacher
+
+    # tools.sensitivity's analysis on yololpn at 320 px, 32 frames in memory
+    # (the card's machine has no cv2 for the CLI's JPEG loader)
+    t0 = time.perf_counter()
+    student.eval()
+    weights = fuse_model(student.cpu()).state_dict()
+    inf = Inferer(".", weights, s_cfg, img_size=SENS_IMG, half=True, device=dev)
+    s_imgs, s_labels, s_masks = labelled_frames(np.random.default_rng(SEED + 181), SENS_IMAGES,
+                                                SENS_IMG)
+    amax = calibrate(inf.model, [s_imgs], method="max", device=dev)
+    ev = Evaler({}, batch_size=BATCH, img_size=SENS_IMG, conf_thres=0.0, device=dev)
+    # the frames labelled with the float model's own detections, so that the
+    # baseline is above 0 and a quantized conv can move it
+    preds, _ = ev.predict(ev.make_infer_fn(inf.model),
+                          loader_batches(s_imgs, s_labels, s_masks, BATCH))
+    s_labels, s_masks = self_labels(preds, SENS_IMG, s_labels.shape[1])
+    base, full, ranked = sensitivity.analyse(inf.model, amax, ev,
+                                             loader_batches(s_imgs, s_labels, s_masks, BATCH))
+    if len(ranked) != len(amax) or not np.isfinite([base, full] + [v for _, v in ranked]).all():
+        raise AssertionError(f"sensitivity: {len(ranked)} of {len(amax)} convs ranked")
+    if not (base > 0 and any(v != 0 for _, v in ranked)):
+        raise AssertionError(f"sensitivity: baseline mAP {base}, every drop 0: nothing measured")
+    print(f"[{card}] tools.sensitivity analysis, yololpn {SENS_IMG}px, {SENS_IMAGES} frames: "
+          f"{len(ranked)} convs one at a time in {time.perf_counter() - t0:.1f} s; baseline mAP "
+          f"{base:.4f}, fully quantized {full:.4f}; top drops "
+          f"{json.dumps([(k, round(v, 4)) for k, v in ranked[:3]])}")
+    out["sensitivity"] = dict(baseline=base, full=full, seconds=time.perf_counter() - t0,
+                              n=len(ranked))
+    results["distill"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -1690,6 +2252,21 @@ def main():
     # 14. the training path: optimizer steps, QAT, times, the Trainer and its checkpoint
     eval_frames = labelled_frames(np.random.default_rng(SEED + 12), EVAL_FRAMES, IMG)
     phase_training(results, card, dev, train, cfg, ctx8["amax"], eval_frames)
+
+    # 15. the zoo's deploy inference at published width and depth; 15b. the zoo under --int8
+    t_zoo = time.perf_counter()
+    phase_zoo(results, card, dev, batch)
+    phase_zoo_int8(results, card, dev, batch)
+    # 16. a zoo train step with the DFL loss
+    cfg_m, train_m = zoo_model("yolov6m", SEED + 16)
+    phase_train(results, card, dev, train_m, cfg_m, name="yolov6m", n_time=ZOO_TRAIN_BATCH,
+                key="zoo_train", seed=SEED + 160)
+    del train_m
+    # 17. RepOpt; 18. distillation and the sensitivity analysis
+    phase_repopt(results, card, dev, eval_frames)
+    phase_distill(results, card, dev)
+    results["zoo_phases_s"] = time.perf_counter() - t_zoo
+    print(f"phases 15-18 in {results['zoo_phases_s']:.0f} s")
 
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",

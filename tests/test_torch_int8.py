@@ -336,3 +336,85 @@ def test_cli_int8_on_cpu_writes_labels(int8_setup, tmp_path):
             assert (out / "exp" / "labels" / f"im{i}.txt").read_text(encoding="utf-8")
     with pytest.raises(SystemExit):
         main(["--source", str(src), "--device", "cpu", "--not-save-img", "--int8"])
+
+
+# ---------------- the model zoo under --int8 ----------------
+
+
+def _zoo_deploy_pair(name, seed=31):
+    """(flax deploy module, fused variables, the port's deploy model) of a
+    narrow zoo config on the same seeded weights."""
+    from test_torch_zoo import narrow, random_jax_variables
+    from yololp_tpu.layers.fuse import fuse_variables
+    from yololp_tpu.models.yolo import Model as JModel
+    from yololp_tpu.utils.config import Config as JConfig
+    from yololp_tpu_torch.models.yolo import Model
+    from yololp_tpu_torch.utils.config import Config
+    from yololp_tpu_torch.utils.convert import jax_to_state_dict, load_state_dict_strict
+
+    variables = random_jax_variables(Model(narrow(Config.named(name))), seed)
+    fused = jax.tree_util.tree_map(np.asarray, jax.jit(fuse_variables)(variables))
+    tmodel = load_state_dict_strict(Model(narrow(Config.named(name)), deploy=True),
+                                    jax_to_state_dict(fused))
+    return JModel(narrow(JConfig.named(name)), deploy=True), fused, tmodel.eval()
+
+
+def test_zoo_int8_apply_matches_jax():
+    """Narrow yolov6m (CSP backbone and neck, BottleRep stages, DFL head)
+    under the conv plan against the jitted JAX int8_apply: the weight codes
+    equal, no RepBlock chain (a BepC3's RepBlock of BottleReps runs conv by
+    conv, as in JAX), every calibrated conv swapped, and the decode within
+    the strict bounds of test_int8_apply_matches_jax."""
+    from yololp_tpu_torch.quant import quantize as tq
+
+    jmodel, fused, tmodel = _zoo_deploy_pair("yolov6m")
+    x = frames(8, n=1).astype(np.float32) / 255.0
+    amax = tq.calibrate(tmodel, [frames(7)], method="max", device="cpu")
+    jtable = jint8.quantize_kernels_int8(fused["params"])
+    ttable = tint8.quantize_kernels_int8(tmodel.state_dict())
+    assert set(jtable) == set(ttable)
+    for p, (wq, _, _) in ttable.items():
+        if not p.endswith("upsample_transpose"):  # (a float conv in both)
+            assert np.array_equal(wq.numpy(), np.asarray(jtable[p][0]).transpose(3, 0, 1, 2)), p
+    want = np.asarray(jax.jit(lambda v: jint8.int8_apply(
+        jmodel, fused, v, amax, jtable, train=False, conv_impl="conv"))(jnp.asarray(x)))
+    model = tint8.build_int8_model(tmodel, amax, ttable, conv_impl="conv")
+    assert not any(isinstance(m, tint8.Int8RepBlock) for m in model.modules())
+    n_int8 = sum(isinstance(m, tint8.Int8Conv2d) for m in model.modules())
+    assert n_int8 == sum(1 for p in amax if p in ttable and not p.endswith("upsample_transpose")
+                         and not tq._skip(p, tq.DEFAULT_SKIP_SUBSTRINGS))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    d_score = np.abs(got[..., 13:] - want[..., 13:]).max()
+    d_px = np.abs(got[..., :13] - want[..., :13]).max()
+    assert d_score <= STRICT_SCORE and d_px <= STRICT_PX, (d_score, d_px)
+
+
+@pytest.mark.parametrize("name", ["yolov6m", "yolov6l", "yolov6m6", "yolov6n6",
+                                  "repopt/yolov6n_hs", "base/yolov6s_base"])
+def test_zoo_handoff_plans_match_jax(name):
+    """The three planners on a CSP, conv_silu, P6, hyper-search and
+    conv_relu graph emit exactly what the JAX planners emit (on the port's
+    conv paths, which are the flax paths: tests/test_torch_configs.py)."""
+    from test_torch_zoo import narrow
+    from yololp_tpu_torch.models.yolo import Model
+    from yololp_tpu_torch.quant import quantize as tq
+    from yololp_tpu_torch.utils.config import Config
+
+    cfg = narrow(Config.named(name))
+    with torch.device("meta"):
+        model = Model(cfg, deploy=True)
+    paths = [p for p, _ in tq.quantizable_modules(model)
+             if not tq._skip(p, tq.DEFAULT_SKIP_SUBSTRINGS)]
+    amax = {p: 1.0 for p in paths}
+    table = {p: None for p in paths}
+    relu = cfg.get("training_mode", "repvgg") != "conv_silu"
+    got = tint8.graph_handoffs(amax, table, relu_acts=relu)
+    assert got == jint8.graph_handoffs(amax, table, relu_acts=relu)
+    assert tint8.backbone_handoffs(amax, table) == jint8.backbone_handoffs(amax, table)
+    assert tint8.chain_exit_handoffs(amax, table) == jint8.chain_exit_handoffs(amax, table)
+    if name == "yolov6l":
+        # conv_silu: no handoff from a SiLU producer; BiFusion's convs are
+        # ReLU in every family, so its cv2 -> downsample seams remain
+        assert got and all("Bifusion" in p and p.endswith("/cv2/conv") for p in got)

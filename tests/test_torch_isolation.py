@@ -182,23 +182,50 @@ def test_train_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_trainer_refuses_what_waits_for_later_items(tmp_path):
+    """A device mesh (ROADMAP A.13) is still refused. RepOpt and
+    distillation, once refused here, now build: the trainer with
+    training_mode 'repopt' and a scales file, and with --distill from a
+    teacher checkpoint; make_train_step takes masks and a teacher."""
     import types
 
     from yololp_tpu_torch.core.engine import Trainer
     from yololp_tpu_torch.core.train_step import make_train_step
+    from yololp_tpu_torch.losses.loss import LossConfig
+    from yololp_tpu_torch.models.yolo import build_model
+    from yololp_tpu_torch.solver.build import SolverConfig
+    from yololp_tpu_torch.solver.repopt import extract_scales, save_scales
+    from yololp_tpu_torch.utils.checkpoint import save_checkpoint
     from yololp_tpu_torch.utils.config import Config
+    from yololp_tpu_torch.utils.convert import state_dict_to_jax
 
     args = types.SimpleNamespace(img_size=64, batch_size=2, epochs=1, workers=0, device="cpu",
-                                 save_dir=str(tmp_path / "run"), distill=True)
-    with pytest.raises(NotImplementedError, match="A.12"):
-        Trainer(args, Config.named("yololpn"), {"train": str(tmp_path)})
-    cfg = Config.named("yololpn")
-    cfg["training_mode"] = "repopt"
-    with pytest.raises(NotImplementedError, match="A.12"):
-        Trainer(args, cfg, {"train": str(tmp_path)})
+                                 save_dir=str(tmp_path / "run"))
     with pytest.raises(NotImplementedError, match="A.13"):
         Trainer(args, Config.named("yololpn"), {"train": str(tmp_path)}, device_mesh=object())
-    with pytest.raises(NotImplementedError, match="A.12"):
-        make_train_step(torch.nn.Conv2d(3, 3, 1), None, None, 2, grad_masks={})
-    with pytest.raises(NotImplementedError, match="A.12"):
-        make_train_step(torch.nn.Conv2d(3, 3, 1), None, None, 2, teacher=object())
+
+    from yololp_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    data = make_synthetic_dataset(str(tmp_path / "data"), n_train=4, n_val=2, img_size=64, seed=0)
+    hs = build_model(Config.named("repopt/yolov6n_hs"), seed=1, device="cpu")
+    save_scales(extract_scales(hs.state_dict()), str(tmp_path / "scales.msgpack"))
+    cfg = Config.named("repopt/yolov6n_opt")
+    cfg["scales"] = str(tmp_path / "missing.msgpack")
+    with pytest.raises(FileNotFoundError, match="missing.msgpack"):
+        Trainer(args, cfg, data)
+    cfg["scales"] = str(tmp_path / "scales.msgpack")
+    trainer = Trainer(args, cfg, data)
+    assert trainer.solver_cfg.weight_decay == pytest.approx(0.0005 * 2 * 32 / 64)
+
+    teacher = build_model(Config.named("yololps"), seed=2, device="cpu")
+    save_checkpoint({"format": "train", "variables": state_dict_to_jax(teacher.state_dict())},
+                    str(tmp_path / "teacher.msgpack"))
+    kd = types.SimpleNamespace(**vars(args), distill=True,
+                               teacher_ckpt=str(tmp_path / "teacher.msgpack"),
+                               teacher_conf="yololps")
+    assert Trainer(kd, Config.named("yololpn"), data).step_fn is not None
+
+    model = torch.nn.Conv2d(3, 3, 1)
+    make_train_step(model, LossConfig(), SolverConfig(), 2, grad_masks={"weight": torch.ones(1)})
+    make_train_step(model, LossConfig(), SolverConfig(), 2, teacher=torch.nn.Conv2d(3, 3, 1))
+    with pytest.raises(KeyError, match="no parameter"):
+        make_train_step(model, LossConfig(), SolverConfig(), 2, grad_masks={"nope": None})

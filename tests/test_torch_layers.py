@@ -178,9 +178,15 @@ def test_detect_head_decode_matches_flax(use_dfl, reg_max, deploy):
 
 
 def test_get_block_only_repvgg():
-    assert tb.get_block("repvgg") is tb.RepVGGBlock
-    with pytest.raises(NotImplementedError):
-        tb.get_block("conv_silu")
+    """Once only 'repvgg' was ported and the rest refused; now each of the
+    five training modes gives the counterpart of the JAX package's block."""
+    want = {"repvgg": tb.RepVGGBlock, "hyper_search": tb.LinearAddBlock,
+            "repopt": tb.RealVGGBlock, "conv_relu": tb.SimConvWrapper,
+            "conv_silu": tb.ConvWrapper}
+    for mode, cls in want.items():
+        assert tb.get_block(mode) is cls and cls.__name__ == jb.get_block(mode).__name__
+    with pytest.raises(KeyError):
+        tb.get_block("no_such_mode")
 
 
 def test_detect_refuses_train_mode():

@@ -127,3 +127,129 @@ def test_bench_nms(capsys):
     assert 0 < cand["min"] <= cand["max"] < 512
     assert 0 < kept["min"] and kept["max"] <= cand["max"]
     assert not any(key.startswith("approx") or "iters16" in key for key in out)
+
+
+def _self_label(path, det, size):
+    """Write the label file of the image at `path` from its detections `det`
+    (n, 28), clipped to the frame: classes, normalized cxcywh, corners."""
+    box = np.clip(det[:, :4], 0, size) / size
+    cors = np.clip(det[:, 4:12], 0, size) / size
+    keep = (box[:, 2] - box[:, 0] > 1e-3) & (box[:, 3] - box[:, 1] > 1e-3)
+    rows = np.concatenate([det[:, 20:28], (box[:, :2] + box[:, 2:]) / 2, box[:, 2:] - box[:, :2],
+                           cors], 1)[keep]
+    label = path.replace("/images/", "/labels/").rsplit(".", 1)[0] + ".txt"
+    with open(label, "w") as f:
+        for r in rows:
+            f.write(" ".join([str(int(v)) for v in r[:8]] + [f"{v:.6f}" for v in r[8:]]) + "\n")
+
+
+def test_sensitivity_cli_writes_its_json(tmp_path, monkeypatch):
+    """`tools.sensitivity` against the JAX tool (tools/sensitivity.py) at
+    64 px on 4 synthetic val frames, both in fp32, on one yololpn checkpoint
+    the port writes (every weight drawn from a seed). The frames are labelled
+    with that float model's own detections, so the baseline mAP is above 0
+    and quantizing a conv moves it. The amax file holds 4 of the model's 70
+    convs, one from each part of the graph (the tool ranks the convs its file
+    names), so the run stays short: baseline, fully quantized and each
+    conv's drop are equal. (Across all 70 convs every single-conv drop is
+    equal too; the fully quantized mAP of 70 convs is not, for the reason
+    given in tests/test_torch_quant.py:test_quantized_apply_matches_jax.)"""
+    import jax.numpy as jnp
+
+    import yololp_tpu.models as jmodels
+    from test_torch_zoo import random_jax_variables
+    from tools import sensitivity as jsensitivity
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.data.synthetic import make_synthetic_dataset
+    from yololp_tpu_torch.models.yolo import Model
+    from yololp_tpu_torch.quant.quantize import calibrate, save_amax
+    from yololp_tpu_torch.tools import sensitivity
+    from yololp_tpu_torch.utils.checkpoint import save_checkpoint
+    from yololp_tpu_torch.utils.config import Config
+
+    ckpt, data = str(tmp_path / "w.msgpack"), str(tmp_path / "data")
+    save_checkpoint({"format": "train",
+                     "variables": random_jax_variables(Model(Config.named("yololpn")), 7)}, ckpt)
+    make_synthetic_dataset(data, n_train=1, n_val=4, img_size=64, seed=0)
+    inf = Inferer(None, ckpt, "yololpn", img_size=64, half=False, device="cpu")
+    ev = Evaler({"val": str(tmp_path / "data" / "images" / "val")}, 2, 64, workers=0,
+                device="cpu")
+    batches = list(ev.init_data("val")[0])
+    preds, _ = ev.predict(ev.make_infer_fn(inf.model), batches)
+    for path, det in zip(ev.last_paths, preds):
+        _self_label(path, det, 64)
+    amax = calibrate(inf.model, [np.concatenate([b[0] for b in batches])], device="cpu")
+    assert len(amax) == 70
+    some = {k: amax[k] for k in sorted(amax)[::23]}
+    save_amax(some, str(tmp_path / "amax4.json"))
+
+    args = ["--conf-file", "yololpn", "--weights", ckpt, "--synthetic-data", data,
+            "--calib-pt", str(tmp_path / "amax4.json"), "--img-size", "64", "--batch-size", "2",
+            "--max-images", "4", "--device", "cpu"]
+    ranked = sensitivity.main(args + ["--out", str(tmp_path / "sens.json")])
+    # the JAX tool's model in fp32, as the port's on the CPU (it runs bf16)
+    jmodel = jmodels.Model
+    monkeypatch.setattr(jmodels, "Model", lambda **kw: jmodel(**{**kw, "dtype": jnp.float32}))
+    jsensitivity.main(args + ["--out", str(tmp_path / "jax.json")])
+    res = json.loads((tmp_path / "sens.json").read_text())
+    want = json.loads((tmp_path / "jax.json").read_text())
+    assert set(res) == {"baseline_mAP", "full_quant_mAP", "drops"}
+    assert set(res["drops"]) == set(some) and len(ranked) == 4
+    drops = list(res["drops"].values())
+    assert drops == sorted(drops, reverse=True)
+    assert res == want
+    assert res["baseline_mAP"] > 0 and any(d != 0 for d in drops)
+
+
+def test_pipeline_stage_configs_match_jax(tmp_path):
+    """The stage configs the port's pipeline writes load to the JAX
+    pipeline's (from the port's configs/repopt), and the eval log parser and
+    the distill table read what the port's CLIs print."""
+    from tools import repopt_qat_pipeline as jpipe
+    from yololp_tpu.utils.config import Config as JConfig
+    from yololp_tpu_torch.tools import distill_proof, repopt_qat_pipeline as tpipe
+    from yololp_tpu_torch.tools.eval import print_report
+    from yololp_tpu_torch.utils.config import Config
+
+    hs, amax = str(tmp_path / "hs.msgpack"), str(tmp_path / "amax.json")
+    got = tpipe.stage_configs(str(tmp_path / "t"), "yolov6s", hs, amax)
+    want = (jpipe.write_stage_cfg(str(tmp_path / "j"), "hs", "yolov6s_hs.py"),
+            jpipe.write_stage_cfg(str(tmp_path / "j"), "opt", "yolov6s_opt.py",
+                                  f"scales = {hs!r}\n"),
+            jpipe.write_stage_cfg(str(tmp_path / "j"), "qat", "yolov6s_opt_qat.py",
+                                  f"scales = {hs!r}\nqat = dict(calib_pt={amax!r}, "
+                                  "sensitive_layers_skip=False,\n           "
+                                  "sensitive_layers_list=[])\n"))
+    for g, w in zip(got, want):
+        assert g.startswith(str(tmp_path / "t" / "configs"))
+        gc, wc = Config.fromfile(g), JConfig.fromfile(w)
+        assert {k: v for k, v in gc.items() if k != "_filename"} == \
+            {k: v for k, v in wc.items() if k != "_filename"}
+    opt = Config.fromfile(got[1])
+    assert opt["scales"] == hs and opt["training_mode"] == "repopt"
+    assert all(float(v) == 0.0 for v in opt["data_aug"].values())
+    assert Config.fromfile(got[2])["qat"]["calib_pt"] == amax
+
+    log = tmp_path / "eval.log"
+    with open(log, "w") as f:
+        import contextlib
+
+        with contextlib.redirect_stdout(f):
+            print_report((0.5, 0.75, 0.25, 0.4, 0.9, [0.5] * 10, [0.9] * 10),
+                         {"pre_ms": 1.0, "infer_ms": 2.0, "post_ms": 0.5})
+    want_row = {"mAP": 0.5, "mAP50": 0.75, "mAP75": 0.25, "mAP50_95": 0.4, "recall": 0.9}
+    assert tpipe.parse_eval(str(log)) == jpipe.parse_eval(str(log)) == want_row
+
+    train_log = tmp_path / "train_log.jsonl"
+    train_log.write_text('{"epoch": 0, "val/mAP": 0.1}\nnot json\n{"epoch": 3, "val/mAP": 0.3}\n')
+    best = distill_proof.best_val_from_log(str(train_log))
+    assert best == {"epoch": 3, "val/mAP": 0.3}
+    args = distill_proof.argparse.Namespace(student_conf="s.py", teacher_ckpt="t.msgpack",
+                                            data="d.yaml", img_size=64, batch_size=2, epochs=1,
+                                            seed=0)
+    rows = {"baseline": {**want_row, "train_best": None},
+            "distill": {**want_row, "mAP": 0.6, "train_best": best}}
+    lines = distill_proof.results_lines(args, rows)
+    assert lines[0] == "# LP distillation proof" and "0.3000 @e3" in lines[-3]
+    assert lines[-1] == "distill - baseline mAP delta: +0.1000"

@@ -7,9 +7,11 @@ EMA with the LP metric (core/evaler.py, whose NMS runs csrc/greedy_nms.cu on
 the card) -> last/best checkpoints in the JAX package's msgpack format ->
 scalar logging (train_log.jsonl, and TensorBoard where it is installed).
 
-One device, one process. A device mesh or several processes wait for
-ROADMAP A.13; training_mode 'repopt' and --distill for A.12. Each is
-refused with a message.
+RepOpt's second stage (training_mode 'repopt' with a `scales` file: the
+RealVGG kernels re-initialized from the hyper-search scales, trained with
+gradient masks) and LP distillation from a teacher checkpoint (--distill)
+run as in the JAX package. One device, one process: a device mesh or
+several processes wait for ROADMAP A.13 and are refused with a message.
 """
 
 from __future__ import annotations
@@ -77,10 +79,6 @@ class Trainer:
                 torch.distributed.is_available() and torch.distributed.is_initialized()):
             raise NotImplementedError("a device mesh or more than one process waits for "
                                       "ROADMAP A.13 (multi-GPU); the port trains on one device")
-        if cfg.get("training_mode") == "repopt":
-            raise NotImplementedError("training_mode 'repopt' waits for ROADMAP A.12 (RepOpt)")
-        if getattr(args, "distill", False):
-            raise NotImplementedError("--distill waits for ROADMAP A.12 (distillation)")
         self.args = args
         self.cfg = cfg
         self.data_dict = data_dict
@@ -145,9 +143,30 @@ class Trainer:
         self._loss_cfg_formal = (self.loss_cfg._replace(assigner="tal")
                                  if assigner == "atss_tal" else self.loss_cfg)
         solver = cfg["solver"]
+        weight_decay = solver["weight_decay"]
+
+        # RepOpt stage 2: re-initialize from the hyper-search scales (the
+        # parameters and the EMA), mask the gradients, and scale weight decay
+        # by the effective batch (RepOptimizer.get_optimizer_param)
+        grad_masks = None
+        if cfg.get("training_mode") == "repopt" and cfg.get("scales"):
+            from yololp_tpu_torch.solver.repopt import gradient_masks, load_scales, reinitialize
+
+            scales = load_scales(cfg["scales"])
+            params = dict(zip(self.state.names, self.state.params))
+            new = reinitialize(params, scales, generator=torch.Generator().manual_seed(seed))
+            with torch.no_grad():
+                for name, p, e in zip(self.state.names, self.state.params, self.state.ema_params):
+                    if name in new:
+                        p.copy_(new[name])
+                        e.copy_(new[name])
+            grad_masks = gradient_masks(params, scales)
+            accumulate = max(1, round(64 / self.batch_size))
+            weight_decay = weight_decay * self.batch_size * accumulate / 64
+
         self.solver_cfg = SolverConfig(
             lr0=solver["lr0"], lrf=solver["lrf"], momentum=solver["momentum"],
-            weight_decay=solver["weight_decay"], warmup_epochs=solver["warmup_epochs"],
+            weight_decay=weight_decay, warmup_epochs=solver["warmup_epochs"],
             warmup_momentum=solver["warmup_momentum"], warmup_bias_lr=solver["warmup_bias_lr"],
             lr_scheduler=solver["lr_scheduler"], epochs=self.epochs,
             steps_per_epoch=self.steps_per_epoch)
@@ -165,11 +184,16 @@ class Trainer:
             if qat_cfg.get("sensitive_layers_skip"):
                 quant_skip = quant_skip + tuple(qat_cfg["sensitive_layers_list"])
 
+        # LP distillation from a teacher checkpoint of either package
+        teacher = self._build_teacher() if getattr(args, "distill", False) else None
+
         def _build_fns(loss_cfg):
             """(step_fn, epoch_fn, multi_epoch_fn) for one assigner config."""
-            step_fn = make_train_step(self.model, loss_cfg, self.solver_cfg, self.batch_size,
-                                      quant_amax=quant_amax, quant_skip=quant_skip,
-                                      dtype=self.dtype)
+            step_fn = make_train_step(
+                self.model, loss_cfg, self.solver_cfg, self.batch_size, quant_amax=quant_amax,
+                quant_skip=quant_skip, grad_masks=grad_masks, teacher=teacher,
+                distill_cfg=dict(cfg["model"]["head"].get("distill_weight") or {}),
+                dtype=self.dtype)
             if self.cache is not None:
                 from yololp_tpu_torch.data.device_cache import (make_cached_epoch,
                                                                 make_cached_multi_epoch)
@@ -186,6 +210,23 @@ class Trainer:
         self.best_stop_aug_ap = -1.0
         self.log_path = osp.join(self.save_dir, "train_log.jsonl")
         self.tb = self._try_tensorboard()
+
+    def _build_teacher(self):
+        """The teacher: --teacher-conf (else this run's config) in the train
+        graph, with the EMA (else the variables) of --teacher-ckpt."""
+        args = self.args
+        if not getattr(args, "teacher_ckpt", None):
+            raise ValueError("--distill needs --teacher-ckpt")
+        name = getattr(args, "teacher_conf", None)
+        t_cfg = (self.cfg if not name else
+                 Config.fromfile(name) if name.endswith(".py") else Config.named(name))
+        ckpt = load_checkpoint_raw(args.teacher_ckpt)
+        teacher = Model(t_cfg, npro=self.npro, nalp=self.nalp, nads=self.nads)
+        load_state_dict_strict(teacher, jax_to_state_dict(ckpt.get("ema") or ckpt["variables"]))
+        teacher = teacher.to(self.device)
+        if self.device.type == "cuda":
+            teacher = teacher.to(memory_format=torch.channels_last)
+        return teacher
 
     def _fns_for_epoch(self, epoch: int):
         """The step functions of the assigner the schedule gives `epoch`."""

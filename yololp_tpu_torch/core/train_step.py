@@ -27,11 +27,11 @@ from torch import nn
 
 from yololp_tpu_torch.losses.loss import LossConfig, compute_loss
 from yololp_tpu_torch.ops.division import unit_pixels
-from yololp_tpu_torch.solver.build import (SolverConfig, accumulate_steps, ema_update,
-                                           init_momentum, label_groups, schedule, sgd_apply)
+from yololp_tpu_torch.solver.build import (_F32, SolverConfig, _rcp, accumulate_steps,
+                                           ema_update, init_momentum, label_groups, schedule,
+                                           sgd_apply)
 
 _STATS = ("running_mean", "running_var")
-_NO_A12 = "waits for ROADMAP A.12 (RepOpt and distillation)"
 
 
 class TrainState:
@@ -98,6 +98,24 @@ def _batch_tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device, dtype, non_blocking=True) if dtype else t.to(device, non_blocking=True)
 
 
+class _RestoredStats:
+    """Runs a model in train mode and puts its BN statistics back after: the
+    teacher's forward normalizes with the batch's statistics, as the JAX
+    step applies it (train=True, its batch_stats mutations discarded)."""
+
+    def __init__(self, model: nn.Module):
+        self.model = model
+
+    def __enter__(self):
+        self.saved = [b.clone() for b in self.model.buffers()]
+        self.model.train()
+
+    def __exit__(self, *exc):
+        with torch.no_grad():
+            for b, s in zip(self.model.buffers(), self.saved):
+                b.copy_(s)
+
+
 def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverConfig,
                     batch_size: int, quant_amax=None, quant_skip=("proj_conv",),
                     grad_masks=None, teacher=None, distill_cfg=None,
@@ -107,16 +125,30 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverCo
     numpy or tensors, moved to the model's device. dtype: the compute dtype
     (bf16 runs the forward under autocast). quant_amax: {conv path: amax}
     turns on QAT (conv inputs and kernels fake-quantized, straight-through
-    gradient). `state` is the TrainState of `model`, updated in place."""
-    if grad_masks is not None:
-        raise NotImplementedError(f"RepOpt gradient masks {_NO_A12}")
-    if teacher is not None:
-        raise NotImplementedError(f"distillation {_NO_A12}")
+    gradient). grad_masks: RepOpt's {parameter name: mask}
+    (solver/repopt.py:gradient_masks), applied to the summed gradient before
+    weight decay. teacher: a train-graph model of the same head layout;
+    with it the loss adds the LP distillation terms (losses/distill.py)
+    weighted by distill_cfg {'class', 'dfl', 'temperature'} and by the
+    cosine ramp-down at the step's epoch. `state` is the TrainState of
+    `model`, updated in place."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {dtype}: fp32 or bf16")
-    labels = [label_groups(model)[n] for n, _ in model.named_parameters()]
+    names = [n for n, _ in model.named_parameters()]
+    labels = [label_groups(model)[n] for n in names]
+    masks = None
+    if grad_masks is not None:
+        unknown = set(grad_masks) - set(names)
+        if unknown:
+            raise KeyError(f"gradient masks for no parameter: {sorted(unknown)[:3]}")
+        masks = [grad_masks.get(n) for n in names]
     device = next(model.parameters()).device
     wd = solver_cfg.weight_decay
+    dcfg = dict(distill_cfg or {})
+    if teacher is not None:
+        from yololp_tpu_torch.losses.distill import distill_loss, distill_weight_schedule
+
+        teacher.requires_grad_(False)
 
     def forward(x):
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype == torch.bfloat16):
@@ -128,6 +160,22 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverCo
             return quantized_apply(model, x, quant_amax, skip_substrings=quant_skip, train=True,
                                    weights=q)
 
+    def loss(x, out, gt_labels, gt_mask, step: int):
+        if teacher is None:
+            return compute_loss(out, gt_labels, gt_mask, loss_cfg)
+        total, items, fg = compute_loss(out, gt_labels, gt_mask, loss_cfg, with_fg=True)
+        with torch.no_grad(), _RestoredStats(teacher), torch.autocast(
+                device.type, dtype=torch.bfloat16, enabled=dtype == torch.bfloat16):
+            t_out = teacher(x)
+        cls_kd, dfl_kd = distill_loss(out, t_out, fg,
+                                      temperature=float(dcfg.get("temperature", 20.0)),
+                                      use_dfl=loss_cfg.use_dfl, reg_max=loss_cfg.reg_max)
+        # the epoch as the jitted program computes it: step * fp32(1 / steps)
+        epoch = _F32(step) * _rcp(max(solver_cfg.steps_per_epoch, 1))
+        kd_w = float(distill_weight_schedule(epoch, solver_cfg.epochs))
+        return total + kd_w * (float(dcfg.get("class", 1.0)) * cls_kd
+                               + float(dcfg.get("dfl", 1.0)) * dfl_kd), items
+
     def train_step(state: TrainState, images, gt_labels, gt_mask):
         model.train()
         x = unit_pixels(_batch_tensor(images, device).permute(0, 3, 1, 2), dtype)
@@ -135,14 +183,15 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverCo
             # a channels_last backward through the train graph at 640 px
             # corrupts the heap in the CPU build of torch 2.13
             x = x.contiguous()
-        total, items = compute_loss(forward(x), _batch_tensor(gt_labels, device, torch.float32),
-                                    _batch_tensor(gt_mask, device, torch.float32), loss_cfg)
+        total, items = loss(x, forward(x), _batch_tensor(gt_labels, device, torch.float32),
+                            _batch_tensor(gt_mask, device, torch.float32), state.step)
         total.backward()
 
         step = state.step
         if step - state.last_opt_step >= accumulate_steps(solver_cfg, batch_size, step):
             lr_w, lr_b, mom = schedule(solver_cfg, step)
-            sgd_apply(state.params, state.grad_accum, state.momentum, labels, lr_w, lr_b, mom, wd)
+            sgd_apply(state.params, state.grad_accum, state.momentum, labels, lr_w, lr_b, mom, wd,
+                      grad_masks=masks)
             state.ema_updates += 1
             ema_update(state.ema_params, state.params, state.ema_updates)
             ema_update(state.ema_stats, state.batch_stats, state.ema_updates)

@@ -8,6 +8,8 @@ Naming contract (relied on by fuse.py and utils/convert.py, and identical to
 the JAX package's module tree): a fusible Conv+BN pair is always submodules
 named 'conv' + 'bn'; RepVGG branches are 'rbr_dense_conv', 'rbr_dense_bn',
 'rbr_1x1_conv', 'rbr_1x1_bn', 'rbr_identity_bn'; the deploy conv is 'conv'.
+A LinearAddBlock holds 'conv', 'conv_1x1', 'scale_conv', 'scale_1x1'
+['scale_identity'] and 'bn'; a RealVGGBlock one ConvBNAct named 'cell'.
 
 Stride-2 convs pad k//2 on both sides, and max-pool pads with -inf, as in
 the JAX package.
@@ -111,22 +113,156 @@ class RepVGGBlock(nn.Module):
         return F.relu(y)
 
 
-class RepBlock(nn.Module):
-    """Stage of n rep-style blocks: 'conv1' then 'block_0' .. 'block_{n-2}'."""
+class RealVGGBlock(nn.Module):
+    """Plain conv-BN-ReLU, the RepOpt target net's block: one ConvBNAct
+    named 'cell'."""
 
-    def __init__(self, in_channels: int, out_channels: int, n: int = 1,
-                 block=RepVGGBlock, deploy: bool = False):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 deploy: bool = False):
         super().__init__()
-        self.conv1 = block(in_channels, out_channels, deploy=deploy)
-        self.n = n
-        for i in range(n - 1):
-            self.add_module(f"block_{i}", block(out_channels, out_channels, deploy=deploy))
+        self.cell = ConvBNAct(in_channels, out_channels, 3, stride, act="relu", deploy=deploy)
 
     def forward(self, x):
-        x = self.conv1(x)
-        for i in range(self.n - 1):
-            x = getattr(self, f"block_{i}")(x)
+        return self.cell(x)
+
+
+class ScaleLayer(nn.Module):
+    """Per-channel learnable scale (parameter 'weight'), with an optional
+    bias."""
+
+    def __init__(self, channels: int, use_bias: bool = True, scale_init: float = 1.0):
+        super().__init__()
+        self.scale_init = scale_init
+        self.weight = nn.Parameter(torch.full((channels,), float(scale_init)))
+        self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
+
+    def forward(self, x):
+        y = x * self.weight.reshape(1, -1, 1, 1)
+        if self.bias is not None:
+            y = y + self.bias.reshape(1, -1, 1, 1)
+        return y
+
+
+class LinearAddBlock(nn.Module):
+    """CSLA hyper-search block: scaled 3x3 + scaled 1x1 (+ scaled identity
+    when in==out and stride==1), one shared BN, ReLU. Deploy graph: one
+    biased 3x3 'conv' + ReLU (layers/fuse.py:fold_linear_add)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 conv_scale_init: float = 1.0, deploy: bool = False):
+        super().__init__()
+        self.deploy = deploy
+        if deploy:
+            self.conv = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=True)
+            return
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False)
+        self.scale_conv = ScaleLayer(out_channels, use_bias=False, scale_init=conv_scale_init)
+        self.conv_1x1 = nn.Conv2d(in_channels, out_channels, 1, stride, 0, bias=False)
+        self.scale_1x1 = ScaleLayer(out_channels, use_bias=False, scale_init=conv_scale_init)
+        self.scale_identity = (ScaleLayer(out_channels, use_bias=False, scale_init=1.0)
+                               if in_channels == out_channels and stride == 1 else None)
+        self.bn = batch_norm(out_channels)
+
+    def forward(self, x):
+        if self.deploy:
+            return F.relu(self.conv(x))
+        y = self.scale_conv(self.conv(x)) + self.scale_1x1(self.conv_1x1(x))
+        if self.scale_identity is not None:
+            y = y + self.scale_identity(x)
+        return F.relu(self.bn(y))
+
+
+class ConvWrapper(nn.Module):
+    """conv_silu mode block: a biased 3x3 conv + BN + SiLU, named 'block'."""
+
+    act = "silu"
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 deploy: bool = False):
+        super().__init__()
+        self.block = ConvBNAct(in_channels, out_channels, 3, stride, act=self.act,
+                               conv_bias=True, deploy=deploy)
+
+    def forward(self, x):
+        return self.block(x)
+
+
+class SimConvWrapper(ConvWrapper):
+    """conv_relu mode block: a biased 3x3 conv + BN + ReLU, named 'block'."""
+
+    act = "relu"
+
+
+class BottleRep(nn.Module):
+    """Two blocks, 'conv1' and 'conv2', with a residual when in==out; with
+    weight=True the residual is scaled by a learnable 'alpha' of shape (1,)."""
+
+    def __init__(self, in_channels: int, out_channels: int, block=RepVGGBlock,
+                 weight: bool = False, deploy: bool = False):
+        super().__init__()
+        self.conv1 = block(in_channels, out_channels, deploy=deploy)
+        self.conv2 = block(out_channels, out_channels, deploy=deploy)
+        self.shortcut = in_channels == out_channels
+        self.alpha = nn.Parameter(torch.ones(1)) if self.shortcut and weight else None
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x))
+        if not self.shortcut:
+            return y
+        return y + (self.alpha * x if self.alpha is not None else x)
+
+
+class RepBlock(nn.Module):
+    """Stage of rep-style blocks: 'conv1' then 'block_0', 'block_1', ...
+    n blocks in all; with block=BottleRep, n // 2 BottleReps of
+    `basic_block` with weighted residuals (the CSP 'm' path)."""
+
+    def __init__(self, in_channels: int, out_channels: int, n: int = 1,
+                 block=RepVGGBlock, basic_block=RepVGGBlock, deploy: bool = False):
+        super().__init__()
+        if block is BottleRep:
+            make = functools.partial(BottleRep, block=basic_block, weight=True, deploy=deploy)
+            n = n // 2
+        else:
+            make = functools.partial(block, deploy=deploy)
+        self.conv1 = make(in_channels, out_channels)
+        self.n = n
+        for i in range(n - 1):
+            self.add_module(f"block_{i}", make(out_channels, out_channels))
+
+    def links(self):
+        """The blocks in the order they run."""
+        return [self.conv1] + [getattr(self, f"block_{i}") for i in range(self.n - 1)]
+
+    def forward(self, x):
+        for b in self.links():
+            x = b(x)
         return x
+
+
+class BepC3(nn.Module):
+    """CSP block: 1x1 'cv1' -> RepBlock 'm' of BottleReps, concatenated with
+    the 1x1 'cv2' branch, then 1x1 'cv3'. Its convs are SiLU exactly when
+    the block is ConvWrapper, else ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, n: int = 1, e: float = 0.5,
+                 concat: bool = True, block=RepVGGBlock, deploy: bool = False):
+        super().__init__()
+        c_ = int(out_channels * e)
+        cba = functools.partial(ConvBNAct, act="silu" if block is ConvWrapper else "relu",
+                                deploy=deploy)
+        self.cv1 = cba(in_channels, c_, 1, 1)
+        self.m = RepBlock(c_, c_, n=n, block=BottleRep, basic_block=block, deploy=deploy)
+        self.concat = concat
+        if concat:
+            self.cv2 = cba(in_channels, c_, 1, 1)
+        self.cv3 = cba(2 * c_ if concat else c_, out_channels, 1, 1)
+
+    def forward(self, x):
+        y1 = self.m(self.cv1(x))
+        if self.concat:
+            return self.cv3(torch.cat([y1, self.cv2(x)], 1))
+        return self.cv3(y1)
 
 
 def _max_pool5(x):
@@ -224,10 +360,15 @@ class BiFusion(nn.Module):
         return self.cv3(torch.cat([x0, x1, x2], 1))
 
 
+BLOCKS = {
+    "repvgg": RepVGGBlock,
+    "hyper_search": LinearAddBlock,
+    "repopt": RealVGGBlock,
+    "conv_relu": SimConvWrapper,
+    "conv_silu": ConvWrapper,
+}
+
+
 def get_block(mode: str):
-    """Training-mode block selector; only 'repvgg' (the LP configs') is ported."""
-    blocks = {"repvgg": RepVGGBlock}
-    if mode not in blocks:
-        raise NotImplementedError(
-            f"training_mode {mode!r} is not ported yet; available: {sorted(blocks)}")
-    return blocks[mode]
+    """Training-mode block selector."""
+    return BLOCKS[mode]

@@ -6,7 +6,12 @@ layers/blocks.py; this module does the same on a torch state dict (OIHW
 kernels), nested by module path:
 
   * RepVGG branches             -> one biased 'conv'
+  * LinearAddBlock (CSLA)       -> one biased 'conv'
   * sibling 'conv' + 'bn' pair  -> biased 'conv' (BN removed)
+
+A LinearAddBlock also holds a 'conv' and a 'bn', so its pattern is tested
+before the generic pair (folding that pair alone would drop its 1x1 branch
+and its scales).
 
 Everything else passes through. The arithmetic follows the JAX fold in the
 same order and in fp32.
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from yololp_tpu_torch.layers.blocks import BN_EPS
 
 _REPVGG_KEYS = {"rbr_dense_conv", "rbr_dense_bn", "rbr_1x1_conv", "rbr_1x1_bn"}
+_LINEARADD_KEYS = {"conv", "scale_conv", "conv_1x1", "scale_1x1", "bn"}
 
 
 def fold_conv_bn(weight: torch.Tensor, bn: Dict[str, torch.Tensor],
@@ -59,6 +65,22 @@ def fold_repvgg(node: Dict) -> Dict:
     return {"conv": {"weight": weight, "bias": bias}}
 
 
+def fold_linear_add(node: Dict) -> Dict:
+    """Fuse a LinearAddBlock into one biased 3x3 conv: the kernel
+    scale_conv * k3 + pad(scale_1x1 * k1) [+ scale_identity * I], then the
+    shared BN folded in."""
+    k3 = node["conv"]["weight"].float()
+    k1 = node["conv_1x1"]["weight"].float()
+    col = lambda s: s.float().reshape(-1, 1, 1, 1)  # noqa: E731  (per output channel)
+    weight = k3 * col(node["scale_conv"]["weight"]) + F.pad(
+        k1 * col(node["scale_1x1"]["weight"]), (1, 1, 1, 1))
+    if "scale_identity" in node:
+        kid = _identity_kernel_3x3(k3.shape[1], k3.shape[0]).to(k3.device)
+        weight = weight + kid * col(node["scale_identity"]["weight"])
+    weight, bias = fold_conv_bn(weight, node["bn"])
+    return {"conv": {"weight": weight, "bias": bias}}
+
+
 def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
     tree: Dict = {}
     for key, value in flat.items():
@@ -91,6 +113,8 @@ def fuse_tree(node):
     keys = set(node)
     if _REPVGG_KEYS <= keys:
         return fold_repvgg(node)
+    if _LINEARADD_KEYS <= keys:
+        return fold_linear_add(node)
     out = {}
     if "conv" in keys and "bn" in keys and _is_conv_leaf(node["conv"]):
         weight, bias = fold_conv_bn(node["conv"]["weight"], node["bn"],

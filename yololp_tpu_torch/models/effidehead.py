@@ -41,21 +41,22 @@ class HeadTrainOutput(NamedTuple):
 
 
 class Detect(nn.Module):
-    """Anchor-free LP detection head over 3 FPN levels: the eval decode, or
-    in training mode the HeadTrainOutput."""
+    """Anchor-free LP detection head over 3 FPN levels (strides 8-32) or 4
+    (8-64, the P6 models): the eval decode, or in training mode the
+    HeadTrainOutput."""
 
     def __init__(self, in_channels: Sequence[int], npro: int = 31, nalp: int = 24,
                  nads: int = 37, num_layers: int = 3, use_dfl: bool = True,
                  reg_max: int = 16, deploy: bool = False,
                  grid_cell_offset: float = 0.5):
         super().__init__()
-        if num_layers != 3:
-            raise NotImplementedError("only the 3-level (P3-P5) head is ported")
+        if num_layers not in (3, 4) or len(in_channels) != num_layers:
+            raise ValueError(f"a head of {num_layers} levels on {len(in_channels)} maps")
         self.npro, self.nalp, self.nads = npro, nalp, nads
         self.ncls = npro + nalp + 6 * nads
         self.use_dfl, self.reg_max = use_dfl, reg_max
         self.nreg = 4 * (reg_max + 1)
-        self.strides = (8, 16, 32)
+        self.strides = (8, 16, 32) if num_layers == 3 else (8, 16, 32, 64)
         self.grid_cell_offset = grid_cell_offset
         for i, c in enumerate(in_channels):
             self.add_module(f"stem{i}", ConvBNAct(c, c, 1, 1, act="silu", deploy=deploy))

@@ -14,14 +14,29 @@ import math
 import torch
 from torch import nn
 
-from yololp_tpu_torch.layers.blocks import get_block
+from yololp_tpu_torch.layers.blocks import BottleRep, ScaleLayer, get_block
+from yololp_tpu_torch.models import efficientrep as _bb
+from yololp_tpu_torch.models import reppan as _nk
 from yololp_tpu_torch.models.effidehead import Detect
-from yololp_tpu_torch.models.efficientrep import EfficientRep
-from yololp_tpu_torch.models.reppan import RepBiFPANNeck
 from yololp_tpu_torch.utils.device import resolve_device
 
-BACKBONES = {"EfficientRep": EfficientRep}
-NECKS = {"RepBiFPANNeck": RepBiFPANNeck}
+BACKBONES = {
+    "EfficientRep": _bb.EfficientRep,
+    "EfficientRep6": _bb.EfficientRep6,
+    "CSPBepBackbone": _bb.CSPBepBackbone,
+    "CSPBepBackbone_P6": _bb.CSPBepBackbone_P6,
+}
+
+NECKS = {
+    "RepPANNeck": _nk.RepPANNeck,
+    "RepBiFPANNeck": _nk.RepBiFPANNeck,
+    "RepPANNeck6": _nk.RepPANNeck6,
+    "RepBiFPANNeck6": _nk.RepBiFPANNeck6,
+    "CSPRepPANNeck": _nk.CSPRepPANNeck,
+    "CSPRepBiFPANNeck": _nk.CSPRepBiFPANNeck,
+    "CSPRepPANNeck_P6": _nk.CSPRepPANNeck_P6,
+    "CSPRepBiFPANNeck_P6": _nk.CSPRepBiFPANNeck_P6,
+}
 
 
 def make_divisible(x, divisor=8):
@@ -46,13 +61,6 @@ def scaled_lists(config):
     return num_repeat, channels_list
 
 
-def _lookup(registry, kind, name):
-    if name not in registry:
-        raise NotImplementedError(
-            f"{kind} {name!r} is not ported yet; available: {sorted(registry)}")
-    return registry[name]
-
-
 class Model(nn.Module):
     """backbone -> neck -> head; the eval forward returns (B, A, 290), the
     train forward (`.train()`) a HeadTrainOutput."""
@@ -65,12 +73,16 @@ class Model(nn.Module):
         num_repeat, channels_list = scaled_lists(config)
         mcfg = config["model"]
         block = get_block(config.get("training_mode", "repvgg"))
-        self.backbone = _lookup(BACKBONES, "backbone", mcfg["backbone"]["type"])(
-            channels_list, num_repeat, block=block,
-            fuse_P2=bool(mcfg["backbone"].get("fuse_P2")),
-            cspsppf=bool(mcfg["backbone"].get("cspsppf")), deploy=deploy)
-        self.neck = _lookup(NECKS, "neck", mcfg["neck"]["type"])(
-            channels_list, num_repeat, block=block, deploy=deploy)
+        bb, nk = mcfg["backbone"], mcfg["neck"]
+        bb_kw = dict(block=block, fuse_P2=bool(bb.get("fuse_P2")),
+                     cspsppf=bool(bb.get("cspsppf")), deploy=deploy)
+        if "CSP" in bb["type"]:
+            bb_kw["csp_e"] = bb["csp_e"]
+        self.backbone = BACKBONES[bb["type"]](channels_list, num_repeat, **bb_kw)
+        nk_kw = dict(block=block, deploy=deploy)
+        if "CSP" in nk["type"]:
+            nk_kw["csp_e"] = nk["csp_e"]
+        self.neck = NECKS[nk["type"]](channels_list, num_repeat, **nk_kw)
         self.detect = Detect(
             self.neck.out_channels, npro=npro, nalp=nalp, nads=nads,
             num_layers=mcfg["head"]["num_layers"],
@@ -88,8 +100,9 @@ class Model(nn.Module):
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator):
     """Draw the initial weights from `generator`, as the JAX init does:
-    truncated-normal LeCun kernels, zero biases, identity BN, and the head's
-    zero pred kernels with the prior-prob bias."""
+    truncated-normal LeCun kernels, zero biases, identity BN, ScaleLayers
+    at their scale_init, BottleRep alphas at one, and the head's zero pred
+    kernels with the prior-prob bias."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
@@ -101,6 +114,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+        elif isinstance(m, ScaleLayer):
+            m.weight.fill_(m.scale_init)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BottleRep) and m.alpha is not None:
+            m.alpha.fill_(1.0)
     for m in model.modules():
         if isinstance(m, Detect):
             m.reset_pred_parameters()

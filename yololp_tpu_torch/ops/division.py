@@ -24,7 +24,10 @@ def reciprocal(c) -> float:
 
 def div_const(x: torch.Tensor, c) -> torch.Tensor:
     """`x / c` for a constant `c` as jax.jit computes it: x * fp32(1/c) in
-    fp32, rounded back to a narrower float dtype of `x`."""
+    fp32, rounded back to a narrower float dtype of `x` (a float64 `x`, as in
+    a float64 reference run, is multiplied by the double reciprocal)."""
+    if x.dtype == torch.float64:
+        return x * (1.0 / float(c))
     r = reciprocal(c)
     if x.dtype == torch.float32:
         return x * r

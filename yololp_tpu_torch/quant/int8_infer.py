@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yololp_tpu_torch.layers.blocks import ConvBNAct, RepBlock, RepVGGBlock
+from yololp_tpu_torch.layers.blocks import ConvBNAct, LinearAddBlock, RepBlock, RepVGGBlock
 from yololp_tpu_torch.ops import cuda_conv, cuda_matmul
 from yololp_tpu_torch.ops.nms import non_max_suppression
 from yololp_tpu_torch.quant.quantize import (DEFAULT_SKIP_SUBSTRINGS, _image_tensor, _skip,
@@ -330,8 +330,9 @@ class Int8Conv2d(nn.Module):
 
 
 class Int8Handoff(nn.Module):
-    """A deploy RepVGG block whose conv hands int8 codes off: its ReLU is
-    folded into the requant clip, so the block is the conv alone."""
+    """A deploy RepVGG (or LinearAdd) block whose conv hands int8 codes off:
+    its ReLU is folded into the requant clip, so the block is the conv
+    alone."""
 
     def __init__(self, conv: Int8Conv2d):
         super().__init__()
@@ -370,8 +371,9 @@ class Int8RepBlock(nn.Module):
 
 
 def _is_deploy_repvgg_chain(m: nn.Module) -> bool:
-    links = [m.conv1] + [getattr(m, f"block_{i}") for i in range(m.n - 1)]
-    return all(isinstance(b, RepVGGBlock) and b.deploy for b in links)
+    """A deploy RepBlock of RepVGG links (a BepC3's RepBlock of BottleReps,
+    or one of RealVGG or LinearAdd links, runs conv by conv, as in JAX)."""
+    return all(type(b) is RepVGGBlock and b.deploy for b in m.links())
 
 
 def _set(root: nn.Module, dotted: str, module: nn.Module):
@@ -428,7 +430,7 @@ def build_int8_model(model: nn.Module, amax_by_path: Dict[str, float],
         parent = out.get_submodule(parent_name)
         if cons is None:
             _set(out, name, conv)
-        elif isinstance(parent, RepVGGBlock):
+        elif isinstance(parent, (RepVGGBlock, LinearAddBlock)) and parent.deploy:
             _set(out, parent_name, Int8Handoff(conv))
         elif isinstance(parent, ConvBNAct) and isinstance(parent.act, nn.ReLU):
             _set(out, name, conv)

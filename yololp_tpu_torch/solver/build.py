@@ -23,7 +23,7 @@ tensor).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -111,9 +111,11 @@ def ema_decay(updates: int) -> np.float32:
 
 
 def label_groups(model: nn.Module) -> Dict[str, str]:
-    """{parameter name: 'bias' | 'bnw' | 'w'} by module type: every bias is
-    'bias', a BatchNorm weight (flax's 'scale') is 'bnw', a conv weight 'w'
-    (the JAX label_tree by leaf name)."""
+    """{parameter name: 'bias' | 'bnw' | 'w'}: every bias is 'bias', a
+    BatchNorm weight (flax's 'scale') is 'bnw', and every other parameter
+    'w', weight-decayed: conv weights, a ScaleLayer's 'weight' and a
+    BottleRep's 'alpha' (the JAX label_tree labels by leaf name, so those
+    two are 'w' there too)."""
     out = {}
     for mname, m in model.named_modules():
         for pname, _ in m.named_parameters(recurse=False):
@@ -122,10 +124,8 @@ def label_groups(model: nn.Module) -> Dict[str, str]:
                 out[full] = "bias"
             elif isinstance(m, nn.modules.batchnorm._BatchNorm):
                 out[full] = "bnw"
-            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                out[full] = "w"
             else:
-                raise TypeError(f"no parameter group for {full} ({type(m).__name__})")
+                out[full] = "w"
     return out
 
 
@@ -136,10 +136,15 @@ def init_momentum(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 @torch.no_grad()
 def sgd_apply(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
               momentum_buf: Sequence[torch.Tensor], labels: Sequence[str],
-              lr_w, lr_b, mom, weight_decay: float):
+              lr_w, lr_b, mom, weight_decay: float,
+              grad_masks: Optional[Sequence[Optional[torch.Tensor]]] = None):
     """Torch SGD with Nesterov momentum, in place on each group:
-    d = g (+ wd * p for 'w'); v = mom * v + d; p -= lr * (d + mom * v)."""
+    d = g * mask (+ wd * p for 'w'); v = mom * v + d; p -= lr * (d + mom * v).
+    grad_masks: RepOpt's per-weight masks, one per parameter (None where
+    the mask is one)."""
     lr_w, lr_b, mom = float(lr_w), float(lr_b), float(mom)
+    if grad_masks is not None:
+        grads = [g if m is None else g * m for g, m in zip(grads, grad_masks)]
     for group in ("w", "bnw", "bias"):
         idx = [i for i, lab in enumerate(labels) if lab == group]
         if not idx:

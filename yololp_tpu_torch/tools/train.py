@@ -4,6 +4,13 @@ Examples:
   python -m yololp_tpu_torch.tools.train --conf-file yololps --data-path data/dataset.yaml
   python -m yololp_tpu_torch.tools.train --conf-file yololpn --synthetic-data --epochs 2 \\
       --img-size 64 --batch-size 4 --device cpu     # smoke run, no dataset
+  # RepOpt: hyper-search, then the RealVGG net from its scales (a config
+  # whose `scales` names the hyper-search checkpoint or a scales file)
+  python -m yololp_tpu_torch.tools.train --conf-file repopt/yolov6n_hs ...
+  python -m yololp_tpu_torch.tools.train --conf-file my_yolov6n_opt.py ...
+  # distillation from a teacher checkpoint
+  python -m yololp_tpu_torch.tools.train --conf-file yololpn --distill \\
+      --teacher-ckpt runs/train/yololps/weights/best_ckpt.msgpack --teacher-conf yololps ...
 
 One device, one process: `--device cuda` (the default) or `cpu`. Writes
 last/best checkpoints and final_ckpt.msgpack under <output-dir>/<name>/weights
@@ -63,9 +70,11 @@ def get_args_parser():
     p.add_argument("--calib-pt", type=str, default=None,
                    help="calibration amax json for QAT (overrides cfg.qat)")
     p.add_argument("--distill", action="store_true",
-                   help="refused: distillation waits for ROADMAP A.12")
-    p.add_argument("--teacher-ckpt", type=str, default=None)
-    p.add_argument("--teacher-conf", type=str, default=None)
+                   help="LP knowledge distillation from --teacher-ckpt")
+    p.add_argument("--teacher-ckpt", type=str, default=None,
+                   help="teacher checkpoint (either package's msgpack)")
+    p.add_argument("--teacher-conf", type=str, default=None,
+                   help="teacher config (default: --conf-file)")
     return p
 
 

@@ -10,6 +10,8 @@ path. Only the leaves and layouts change:
     kernel, torch's (the conv adjoint) does (yololp_tpu/utils/transplant.py:9-11,71-72)
   * BatchNorm params 'scale'/'bias' -> 'weight'/'bias', batch_stats
     'mean'/'var' -> 'running_mean'/'running_var'
+  * a ScaleLayer's 'weight' (modules 'scale_conv', 'scale_1x1',
+    'scale_identity') and a BottleRep's 'alpha' keep their names
 
 Input trees are nested dicts of numpy arrays, as a msgpack checkpoint holds
 them, in train format ({'params', 'batch_stats'}) or deploy format
@@ -26,7 +28,10 @@ import torch
 from torch import nn
 
 _TRANSPOSE_CONV = "upsample_transpose"
-_PARAM_LEAVES = {"bias": "bias", "scale": "weight"}
+_PARAM_LEAVES = {"bias": "bias", "scale": "weight", "weight": "weight", "alpha": "alpha"}
+# the ScaleLayer modules of a LinearAddBlock: their 1-d 'weight' is a
+# ScaleLayer's, not a BatchNorm's 'scale'
+_SCALE_LAYERS = {"scale_conv", "scale_1x1", "scale_identity"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _STAT_NAMES = {v: k for k, v in _STAT_LEAVES.items()}
 
@@ -47,6 +52,11 @@ def _weight(module: str, kernel: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))
 
 
+def _key(path: Tuple[str, ...], leaf: str) -> str:
+    """The state dict key of flax leaf `path` renamed to `leaf`."""
+    return ".".join(path[:-1] + (leaf,))
+
+
 def jax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Convert JAX variables (numpy leaves) to this package's state dict
     (CPU float32 tensors), without BN's num_batches_tracked buffers."""
@@ -54,16 +64,15 @@ def jax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for path, arr in _flatten(variables["params"]):
         module, leaf = ".".join(path[:-1]), path[-1]
         if leaf == "kernel":
-            out[module + ".weight"] = _weight(module, arr)
+            out[_key(path, "weight")] = _weight(module, arr)
         elif leaf in _PARAM_LEAVES:
-            out[module + "." + _PARAM_LEAVES[leaf]] = arr
+            out[_key(path, _PARAM_LEAVES[leaf])] = arr
         else:
             raise KeyError(f"no mapping for param leaf {'.'.join(path)!r}")
     for path, arr in _flatten(variables.get("batch_stats", {})):
-        module, leaf = ".".join(path[:-1]), path[-1]
-        if leaf not in _STAT_LEAVES:
+        if path[-1] not in _STAT_LEAVES:
             raise KeyError(f"no mapping for batch_stats leaf {'.'.join(path)!r}")
-        out[module + "." + _STAT_LEAVES[leaf]] = arr
+        out[_key(path, _STAT_LEAVES[path[-1]])] = arr
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
@@ -82,8 +91,10 @@ def _insert(tree: Dict, path, value):
 def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
     """A state dict of this package (train or deploy graph) -> the JAX
     package's {'params', 'batch_stats'} tree of float32 numpy arrays: OIHW
-    -> HWIO, the transposed conv unflipped, BN 'weight' -> 'scale' and the
-    running statistics -> batch_stats 'mean'/'var'. BN's step counters are
+    -> HWIO, the transposed conv unflipped, BN 'weight' -> 'scale' (a
+    ScaleLayer's 'weight' and a BottleRep's 'alpha' keep their names; a
+    1-d 'weight' is told apart by its module's name) and the running
+    statistics -> batch_stats 'mean'/'var'. BN's step counters are
     dropped; a tree without statistics has no 'batch_stats'."""
     params: Dict = {}
     stats: Dict = {}
@@ -96,9 +107,10 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
         if leaf == "weight" and arr.ndim == 4:
             _insert(params, mods + ["kernel"], _kernel(module, arr))
         elif leaf == "weight" and arr.ndim == 1:
-            _insert(params, mods + ["scale"], arr.copy())
-        elif leaf == "bias":
-            _insert(params, mods + ["bias"], arr.copy())
+            _insert(params, mods + ["weight" if mods[-1] in _SCALE_LAYERS else "scale"],
+                    arr.copy())
+        elif leaf in ("bias", "alpha"):
+            _insert(params, mods + [leaf], arr.copy())
         elif leaf in _STAT_NAMES:
             _insert(stats, mods + [_STAT_NAMES[leaf]], arr.copy())
         else:
