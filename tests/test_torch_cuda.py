@@ -194,3 +194,31 @@ def test_loss_on_the_card_equals_the_cpu(cuda_device):
     torch.testing.assert_close(card[1], cpu[1], rtol=1e-5, atol=1e-7)
     for g, w in zip(card[3:], cpu[3:]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernels_on_a_second_card_leave_the_callers_device(cuda_device):
+    """Each ctypes launcher sets the device of its tensors; the wrapper puts
+    the caller's current device back, so that what PyTorch does next (an
+    event, a new tensor) stays on it. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    boxes, scores, thr = mask_cases(np.random.default_rng(1))["clustered_B32_K512"]
+    b, s = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+    for _ in range(2):  # the NMS launcher remembers the last device it set
+        keep = cuda_nms.greedy_nms_mask(b, s, thr)
+        assert torch.cuda.current_device() == 0
+    assert torch.equal(keep.cpu(), cuda_nms.greedy_nms_mask_plain(b.cpu(), s.cpu(), thr))
+    x, w, a, bias, stride, relu, dt = int8_case(np.random.default_rng(2),
+                                                int8_specs()["int8_no_relu"])
+    args = [torch.from_numpy(t).to(dev) for t in (x, w, a, bias)]
+    got = cuda_conv.int8_conv(*args, stride, relu, dt)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(got, cuda_conv.int8_conv_plain(*args, stride, relu, dt))
+    m, k, n, layout = matmul_cases()[MM_CASES[0]]
+    a8, b8 = matmul_operands(np.random.default_rng(3), m, k, n, torch.int8, layout, dev)
+    check_matmul(cuda_matmul, a8, b8, "on cuda:1", nt=layout != "kn")  # raises on a mismatch
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)

@@ -209,8 +209,9 @@ def test_run_eval_and_refusals(synthetic, models):
         k: v for k, v in KW.items() if k != "max_det"})
     assert len(results) == 7 and len(results[5]) == 10
     ev = Evaler(data, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ev.make_infer_fn(tmodel, mesh=object())
+    # a mesh splits each batch over its replicas: the batch must divide
+    with pytest.raises(ValueError, match="not divisible by mesh size 2"):
+        Evaler(data, batch_size=3, device="cpu").make_infer_fn(tmodel, mesh=["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="A.15"):
         ev.init_data("val", native=True)
     with pytest.raises(NotImplementedError, match="topk"):
@@ -231,8 +232,11 @@ def test_cli_runs_end_to_end_on_cpu(synthetic, tmp_path, capsys):
     assert (tmp_path / "val" / "instances_val.json").is_file()
     rect, _ = main(args + ["--rect"])
     assert len(rect) == 7
-    for flag in (["--mesh", "2"], ["--native-preproc"], ["--nms-selector", "approx"]):
+    # --mesh 2 splits each batch over two replicas (here both on the CPU)
+    meshed, _ = main(args + ["--mesh", "2"])
+    assert meshed == results
+    for flag in (["--native-preproc"], ["--nms-selector", "approx"]):
         with pytest.raises(SystemExit):
             main(args + flag)
     err = capsys.readouterr().err
-    assert "A.13" in err and "A.15" in err and "approx" in err
+    assert "A.15" in err and "approx" in err

@@ -1,8 +1,8 @@
 """The port stands alone: no module of yololp_tpu_torch/, and not
 chip_smoke.py, imports jax, flax or the JAX package (cv2, msgpack, yaml and
 PIL only inside functions), and every entry point refuses to fall back to
-the CPU when no GPU is present; the trainer refuses what waits for later
-items (a mesh, RepOpt, distillation)."""
+the CPU when no GPU is present; the trainer refuses a mesh that is not its
+process group."""
 
 import ast
 import subprocess
@@ -99,14 +99,48 @@ def test_int8_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("tool", ["probe_mxu_int8", "probe_pallas_conv", "profile_int8",
-                                  "probe_latency", "profile_sections", "bench_nms"])
+                                  "probe_latency", "profile_sections", "bench_nms",
+                                  "profile_train", "probe_train_mfu", "probe_int8_e2e"])
 def test_measurement_tools_raise_without_a_gpu(tool, monkeypatch):
     import importlib
 
     main = importlib.import_module(f"yololp_tpu_torch.tools.{tool}").main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    extra = ["--calib-pt", "amax.json"] if tool == "probe_int8_e2e" else []
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        main(["--small"])  # --device defaults to cuda
+        main(["--small"] + extra)  # --device defaults to cuda
+
+
+def test_the_multi_gpu_modules_and_new_tools_are_checked():
+    """parallel/ and the train and int8 probes are among the files and
+    modules the two import tests above walk."""
+    files = {p.relative_to(ROOT).as_posix() for p in port_files()}
+    mods = set(port_modules())
+    for name in ("parallel", "parallel/mesh", "parallel/infer", "tools/profile_train",
+                 "tools/probe_train_mfu", "tools/probe_int8_e2e"):
+        path = f"yololp_tpu_torch/{name}" + ("/__init__.py" if "/" not in name else ".py")
+        assert path in files
+        assert "yololp_tpu_torch." + name.replace("/", ".") in mods
+
+
+def test_parallel_helpers_are_the_identity_outside_a_group(monkeypatch):
+    """Without a process group the port is one process: world 1, rank 0,
+    sums and broadcasts unchanged, no barrier; initialize_distributed joins
+    nothing without torchrun's environment, and never takes NCCL without a
+    card."""
+    from yololp_tpu_torch.parallel import mesh
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert not mesh.initialize_distributed()
+    assert (mesh.world_size(), mesh.rank(), mesh.is_main_process()) == (1, 0, True)
+    t = torch.arange(3.0, requires_grad=True)
+    assert mesh.global_sum(t) is t and mesh.global_sum_grad(t) is t
+    mesh.barrier()
+    assert mesh.data_mesh(2) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="gloo"):
+        mesh.initialize_distributed("nccl")
 
 
 def test_matmul_and_dots_route_raise_without_a_gpu(monkeypatch):
@@ -182,10 +216,12 @@ def test_train_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
 
 
 def test_trainer_refuses_what_waits_for_later_items(tmp_path):
-    """A device mesh (ROADMAP A.13) is still refused. RepOpt and
-    distillation, once refused here, now build: the trainer with
-    training_mode 'repopt' and a scales file, and with --distill from a
-    teacher checkpoint; make_train_step takes masks and a teacher."""
+    """A device mesh means this process group (one process per card): a
+    mesh of two devices in a single process is refused. RepOpt and
+    distillation, once
+    refused here, now build: the trainer with training_mode 'repopt' and a
+    scales file, and with --distill from a teacher checkpoint;
+    make_train_step takes masks and a teacher."""
     import types
 
     from yololp_tpu_torch.core.engine import Trainer
@@ -200,8 +236,9 @@ def test_trainer_refuses_what_waits_for_later_items(tmp_path):
 
     args = types.SimpleNamespace(img_size=64, batch_size=2, epochs=1, workers=0, device="cpu",
                                  save_dir=str(tmp_path / "run"))
-    with pytest.raises(NotImplementedError, match="A.13"):
-        Trainer(args, Config.named("yololpn"), {"train": str(tmp_path)}, device_mesh=object())
+    with pytest.raises(ValueError, match="one process per card"):
+        Trainer(args, Config.named("yololpn"), {"train": str(tmp_path)},
+                device_mesh=[torch.device("cpu")] * 2)
 
     from yololp_tpu_torch.data.synthetic import make_synthetic_dataset
 

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from yololp_tpu_torch.tools import (bench_nms, probe_latency, probe_mxu_int8, probe_pallas_conv,
-                                   profile_int8, profile_sections)
+from yololp_tpu_torch.tools import (bench_nms, probe_int8_e2e, probe_latency, probe_mxu_int8,
+                                   probe_pallas_conv, probe_train_mfu, profile_int8,
+                                   profile_sections, profile_train)
 from yololp_tpu_torch.utils import profiler
 
 torch.set_num_threads(2)
@@ -42,7 +43,7 @@ def retried_delta2(monkeypatch):
             except RuntimeError:
                 if attempt == 2:
                     raise
-    for mod in (probe_mxu_int8, probe_pallas_conv, profile_int8):
+    for mod in (probe_mxu_int8, probe_pallas_conv, profile_int8, probe_int8_e2e):
         monkeypatch.setattr(mod, "timed_scan_delta2", delta2)
 
 
@@ -253,3 +254,91 @@ def test_pipeline_stage_configs_match_jax(tmp_path):
     lines = distill_proof.results_lines(args, rows)
     assert lines[0] == "# LP distillation proof" and "0.3000 @e3" in lines[-3]
     assert lines[-1] == "distill - baseline mAP delta: +0.1000"
+
+
+def jax_conv_flops(jaxpr) -> float:
+    """Flops of the convolutions and matmuls of a jaxpr, 2 a multiply-add,
+    the holes of a dilated input not counted (torch's FlopCounterMode
+    counts a transposed conv and a strided conv's input gradient so)."""
+    from jax.extend import core
+
+    total = 0.0
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "conv_general_dilated":
+            rhs = eqn.invars[1].aval.shape
+            spec = eqn.params["dimension_numbers"].rhs_spec  # (out, in, spatial...)
+            window = np.prod([rhs[d] for d in spec[2:]])
+            total += (2 * np.prod(eqn.outvars[0].aval.shape) * window * rhs[spec[1]]
+                      / np.prod(eqn.params["lhs_dilation"]))
+        elif eqn.primitive.name == "dot_general":
+            (contract, _), _ = eqn.params["dimension_numbers"]
+            lhs = eqn.invars[0].aval.shape
+            total += 2 * np.prod(eqn.outvars[0].aval.shape) * np.prod([lhs[d] for d in contract])
+        for p in eqn.params.values():
+            for sub in (p if isinstance(p, (list, tuple)) else [p]):
+                if isinstance(sub, (core.ClosedJaxpr, core.Jaxpr)):
+                    total += jax_conv_flops(getattr(sub, "jaxpr", sub))
+    return total
+
+
+def test_profile_train(capsys):
+    """Every part is timed; the flops of fwd and fwd_bwd equal those of the
+    JAX tool's programs (its model.apply(train=True) and the gradient of
+    the outputs' sum w.r.t. the parameters), counted from their jaxprs."""
+    import jax
+    import jax.numpy as jnp
+
+    import conftest  # noqa: F401  (forces the JAX cpu backend)
+    from yololp_tpu.models import Model as JModel
+    from yololp_tpu.utils.config import Config as JConfig
+    from yololp_tpu_torch.models.yolo import build_model
+    from yololp_tpu_torch.utils.config import Config
+    from yololp_tpu_torch.utils.convert import state_dict_to_jax
+
+    profile_train.main(["--device", "cpu", "--small", "--conf-file", "yololpn"])
+    out = last_json(capsys.readouterr().out)
+    assert (out["platform"], out["batch"], out["img"]) == ("cpu", 2, 64)
+    parts = ("full", "fwd", "fwd_bwd", "loss_fwd", "loss_grad", "opt")
+    assert positive(*(out[f"{p}_ms"] for p in parts))
+    assert isinstance(out["unattributed_ms"], float)
+
+    model = JModel(config=JConfig.named("yololpn"), deploy=False, dtype=jnp.bfloat16)
+    # the flax tree of the same model (utils/convert.py), without flax's init
+    variables = jax.tree_util.tree_map(jnp.asarray, state_dict_to_jax(
+        build_model(Config.named("yololpn"), device="cpu").state_dict()))
+    x = jnp.zeros((2, 64, 64, 3), jnp.bfloat16)
+
+    def fwd(params):
+        return model.apply({"params": params, "batch_stats": variables["batch_stats"]}, x,
+                           train=True, mutable=["batch_stats"])[0]
+
+    def out_sum(params):
+        return sum(jnp.sum(t.astype(jnp.float32)) for t in jax.tree_util.tree_leaves(fwd(params)))
+
+    for name, fn in (("fwd", fwd), ("fwd_bwd", jax.grad(out_sum))):
+        want = jax_conv_flops(jax.make_jaxpr(fn)(variables["params"]).jaxpr)
+        assert out[f"{name}_flops"] == want, name
+    # the full step's convs are the forward's and backward's; the loss has none
+    assert out["full_flops"] == out["fwd_bwd_flops"] > 2.9 * out["fwd_flops"]
+
+
+def test_probe_train_mfu(capsys):
+    probe_train_mfu.main(["--device", "cpu", "--small", "--conf-file", "yololpn"])
+    out = last_json(capsys.readouterr().out)
+    assert out["platform"] == "cpu"
+    assert [(r["batch"], r["img"], r["variant"]) for r in out["rows"]] == [
+        (b, 64, v) for b in (1, 2) for v in ("infer_fwd", "train_fwd", "fwd_bwd")]
+    for r in out["rows"]:
+        assert positive(r["ms"], r["tflop"], r["tflop_per_s"])
+        assert r["mfu_pct_bf16_peak"] is None  # no share of the card's peak from a CPU run
+    by = {(r["batch"], r["variant"]): r["tflop"] for r in out["rows"]}
+    assert by[(2, "infer_fwd")] == by[(2, "train_fwd")] == 2 * by[(1, "train_fwd")]
+
+
+def test_probe_int8_e2e(capsys, retried_delta2, amax_json):
+    probe_int8_e2e.main(["--device", "cpu", "--small", "--conf-file", "yololpn",
+                         "--calib-pt", amax_json])
+    out = last_json(capsys.readouterr().out)
+    names = (["bf16"] + [c[0] for c in probe_int8_e2e.CUTS]
+             + ["bf16_nms", "int8_full_nms", "chain_bf16", "chain_int8"])
+    assert positive(*(out[f"{n}_ms"] for n in names))

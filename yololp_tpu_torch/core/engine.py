@@ -10,8 +10,17 @@ scalar logging (train_log.jsonl, and TensorBoard where it is installed).
 RepOpt's second stage (training_mode 'repopt' with a `scales` file: the
 RealVGG kernels re-initialized from the hyper-search scales, trained with
 gradient masks) and LP distillation from a teacher checkpoint (--distill)
-run as in the JAX package. One device, one process: a device mesh or
-several processes wait for ROADMAP A.13 and are refused with a message.
+run as in the JAX package.
+
+Data-parallel training: one process per card in a torch.distributed group
+(tools/train.py starts or joins it). `batch_size` is the global batch; each
+rank loads its shard of the data (`process_shard`, or its block of every
+row of the device cache's global index matrix) and the train step computes
+the global batch's update (core/train_step.py). Rank 0 alone evaluates (on
+a plain copy of the EMA, so it starts no collective), writes checkpoints,
+the log, TensorBoard and drawings; a barrier follows every epoch. A
+`device_mesh` means this process group and is kept for the JAX
+signature's sake.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from yololp_tpu_torch.data.datasets import create_dataloader
 from yololp_tpu_torch.layers.fuse import fuse_state_dict
 from yololp_tpu_torch.losses.loss import LossConfig
 from yololp_tpu_torch.models.yolo import Model, build_model
+from yololp_tpu_torch.parallel.mesh import barrier, broadcast_, is_main_process, rank, world_size
 from yololp_tpu_torch.solver.build import SolverConfig
 from yololp_tpu_torch.utils.checkpoint import load_checkpoint_raw, save_checkpoint, strip_checkpoint
 from yololp_tpu_torch.utils.config import Config
@@ -75,16 +85,23 @@ def _vis(what: str, draw):
 
 class Trainer:
     def __init__(self, args, cfg: Config, data_dict: Dict, device_mesh=None):
-        if device_mesh is not None or int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
-                torch.distributed.is_available() and torch.distributed.is_initialized()):
-            raise NotImplementedError("a device mesh or more than one process waits for "
-                                      "ROADMAP A.13 (multi-GPU); the port trains on one device")
+        self.world = world_size()
+        self.is_main = is_main_process()
+        if device_mesh is not None and len(device_mesh) != self.world:
+            raise ValueError(
+                f"a mesh of {len(device_mesh)} devices in a process group of {self.world}: "
+                "the port runs one process per card (torchrun, or tools.train --data-parallel)")
         self.args = args
         self.cfg = cfg
         self.data_dict = data_dict
         self.device = resolve_device(getattr(args, "device", "cuda"))
         self.img_size = int(args.img_size)
         self.batch_size = int(args.batch_size)
+        if self.batch_size % self.world:
+            raise ValueError(f"the world size {self.world} must divide the global batch "
+                             f"{self.batch_size}")
+        host_batch = self.batch_size // self.world
+        self.shard = (rank(), self.world) if self.world > 1 else None
         self.epochs = int(args.epochs)
         self.save_dir = args.save_dir
         os.makedirs(osp.join(self.save_dir, "weights"), exist_ok=True)
@@ -110,11 +127,12 @@ class Trainer:
                                                  augment=False, task="train")
             self.cache = DeviceCachedData(self.train_dataset, seed=seed, device=self.device)
             self.train_loader = None
+            # every rank steps the global batch's schedule
             self.steps_per_epoch = max(self.cache.steps_per_epoch(self.batch_size), 1)
         else:
             self.train_loader, self.train_dataset = create_dataloader(
-                data_dict["train"], self.img_size, self.batch_size, hyp=hyp, augment=True,
-                workers=int(args.workers), task="train", seed=seed)
+                data_dict["train"], self.img_size, host_batch, hyp=hyp, augment=True,
+                workers=int(args.workers), task="train", seed=seed, process_shard=self.shard)
             self.steps_per_epoch = max(len(self.train_loader), 1)
 
         self.dtype = torch.bfloat16 if getattr(args, "bf16", True) else torch.float32
@@ -198,18 +216,20 @@ class Trainer:
                 from yololp_tpu_torch.data.device_cache import (make_cached_epoch,
                                                                 make_cached_multi_epoch)
 
-                return (None, make_cached_epoch(step_fn, self.cache.img_shape),
-                        make_cached_multi_epoch(step_fn, self.cache.img_shape))
+                return (None, make_cached_epoch(step_fn, self.cache.img_shape, self.shard),
+                        make_cached_multi_epoch(step_fn, self.cache.img_shape, self.shard))
             return step_fn, None, None
 
         self._build_train_fns = _build_fns
         self._train_fns_cache = {}
         self.step_fn, self.epoch_fn, self.multi_epoch_fn = self._fns_for_epoch(0)
+        # DDP took rank 0's parameters and statistics; the EMA follows them
+        broadcast_(self.state.ema_params + self.state.ema_stats)
 
         self.best_ap = -1.0
         self.best_stop_aug_ap = -1.0
         self.log_path = osp.join(self.save_dir, "train_log.jsonl")
-        self.tb = self._try_tensorboard()
+        self.tb = self._try_tensorboard() if self.is_main else None
 
     def _build_teacher(self):
         """The teacher: --teacher-conf (else this run's config) in the train
@@ -370,11 +390,13 @@ class Trainer:
                           percentile=float(ptq.get("histogram_amax_percentile", 99.99)),
                           skip_substrings=skip, device=self.device)
         out = osp.join(self.save_dir, "weights", "calib_amax.json")
-        save_amax(amax, out)
-        # keep the source epoch: a QAT finetune resuming this checkpoint
-        # continues the epoch loop from the source run's position
-        self.save("calib_ckpt.msgpack", epoch=getattr(self, "resumed_epoch", -1))
-        print(f"PTQ calibration ({method}) over {len(batches)} batches -> {out}")
+        if self.is_main:
+            save_amax(amax, out)
+            # keep the source epoch: a QAT finetune resuming this checkpoint
+            # continues the epoch loop from the source run's position
+            self.save("calib_ckpt.msgpack", epoch=getattr(self, "resumed_epoch", -1))
+            print(f"PTQ calibration ({method}) over {len(batches)} batches -> {out}")
+        barrier()
         return amax
 
     # ---- main loop ----
@@ -390,7 +412,7 @@ class Trainer:
         return items_sum.cpu().numpy() / max(len(idx_mat), 1), len(idx_mat)
 
     def _maybe_train_vis(self, epoch: int, idx_row):
-        if epoch % 10 == 0:
+        if epoch % 10 == 0 and self.is_main:
             c = self.cache
             self._save_train_vis(epoch, c.host_images[idx_row], c.host_labels[idx_row],
                                  c.host_masks[idx_row])
@@ -473,7 +495,7 @@ class Trainer:
                 items_sum = None  # summed on the device: no host read a step
                 n_steps = 0
                 for imgs, labels, masks, _, _ in self.train_loader:
-                    if n_steps == 0 and epoch % 10 == 0:
+                    if n_steps == 0 and epoch % 10 == 0 and self.is_main:
                         self._save_train_vis(epoch, imgs, labels, masks)
                     self.state, total, items = self.step_fn(self.state, imgs, labels, masks)
                     items_sum = items if items_sum is None else items_sum + items
@@ -489,6 +511,9 @@ class Trainer:
 
             do_eval = ((epoch % eval_interval == 0) or (epoch >= self.epochs - eval_final_n)
                        or (epoch == self.epochs - 1))
+            if not self.is_main:
+                barrier()  # rank 0 evaluates, checkpoints and logs meanwhile
+                continue
             if do_eval:
                 results, speed = self.eval_model()
                 ap = float(results[0])
@@ -513,9 +538,11 @@ class Trainer:
             print(f"epoch {epoch}: " + " ".join(
                 f"{k.split('/')[-1]}={v:.4f}" for k, v in record.items()
                 if isinstance(v, float)))
+            barrier()
 
         # end-of-training strip: a final EMA-only, optimizer-free checkpoint
         last = osp.join(self.save_dir, "weights", "last_ckpt.msgpack")
-        if osp.isfile(last):
+        if self.is_main and osp.isfile(last):
             strip_checkpoint(last, osp.join(self.save_dir, "weights", "final_ckpt.msgpack"))
+        barrier()
         return self.best_ap

@@ -11,7 +11,9 @@ as the JAX package does. `eval` and `_box_iou` are its numpy, copied.
 The device path is the inferer's (core/inferer.py:deploy_decode): uint8 ->
 /255 in the model's dtype -> deploy forward (channels_last) -> fp32 NMS with
 the greedy keep-mask kernel (csrc/greedy_nms.cu). The tail batch is padded
-to batch_size by repeating its last frame, as in the JAX package.
+to batch_size by repeating its last frame, as in the JAX package. With a
+mesh the batch is split over one model replica per device
+(parallel/infer.py).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ class Evaler:
         self.eval_hyp = eval_hyp or {}
         self.device = resolve_device(device)
         self.speed_result = np.zeros(4)  # n, pre ms, infer ms, post ms
+        self._put, self._devices = None, [self.device]  # a mesh's (make_infer_fn)
 
     def init_data(self, task: str = "val", rect: bool = False, native: bool = False):
         if native:
@@ -72,9 +75,14 @@ class Evaler:
         fused deploy model on this evaler's device, in its compute dtype;
         `variables`, a deploy state dict, is loaded into it first when given
         (a torch model carries its weights, so one function serves every
-        eval of a model trained in place)."""
-        if mesh is not None:
-            raise NotImplementedError("mesh eval (multi-GPU) waits for ROADMAP A.13")
+        eval of a model trained in place).
+
+        With `mesh` (a list of devices, parallel/infer.py:infer_mesh) each
+        batch is split over one replica of the model per device (copies of
+        the model as it stands now) and staged there by `predict`; the batch
+        size must be a multiple of the mesh's size (predict pads every batch
+        to it)."""
+        self._put, self._devices = None, [self.device]
         if variables is not None:
             load_state_dict_strict(model, {k: v.to(self.device) for k, v in variables.items()})
         dev, dtype = model_device_dtype(model)
@@ -82,6 +90,17 @@ class Evaler:
             raise ValueError(f"the model lies on {dev}, the evaler runs on {self.device}")
         conf, iou, md = self.conf_thres, self.iou_thres, self.max_det
         sel = self.nms_selector
+        if mesh is not None:
+            if self.batch_size % len(mesh):
+                raise ValueError(f"batch_size {self.batch_size} not divisible by mesh size "
+                                 f"{len(mesh)}")
+            from yololp_tpu_torch.parallel.infer import make_sharded_infer_fn
+
+            run, self._put = make_sharded_infer_fn(model, mesh, conf_thres=conf, iou_thres=iou,
+                                                   max_det=md, dtype=dtype,
+                                                   candidate_selector=sel)
+            self._devices = sorted(set(torch.device(d) for d in mesh), key=str)
+            return run
 
         @torch.inference_mode()
         def run(images_u8):
@@ -92,8 +111,9 @@ class Evaler:
         return run
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in self._devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def predict(self, run_fn, dataloader) -> Tuple[List, List]:
         """Per-image (dets (n, 28), targets (m, 20) in letterboxed pixel
@@ -109,7 +129,9 @@ class Evaler:
                 reps = self.batch_size - bs
                 imgs = np.concatenate([imgs, np.repeat(imgs[-1:], reps, 0)])
             t1 = time.perf_counter()
-            imgs_dev = torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+            imgs = torch.from_numpy(np.ascontiguousarray(imgs))
+            # a mesh's run stages its chunks on their cards (make_infer_fn)
+            imgs_dev = self._put(imgs) if self._put else imgs.to(self.device)
             self._sync()
             t2 = time.perf_counter()
             det, valid, num = run_fn(imgs_dev)

@@ -19,6 +19,7 @@ back from the device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List
 
 import numpy as np
@@ -27,6 +28,7 @@ from torch import nn
 
 from yololp_tpu_torch.losses.loss import LossConfig, compute_loss
 from yololp_tpu_torch.ops.division import unit_pixels
+from yololp_tpu_torch.parallel.mesh import global_sum, world_size
 from yololp_tpu_torch.solver.build import (_F32, SolverConfig, _rcp, accumulate_steps,
                                            ema_update, init_momentum, label_groups, schedule,
                                            sgd_apply)
@@ -42,9 +44,10 @@ class TrainState:
 
     def __init__(self, model: nn.Module):
         named = list(model.named_parameters())
-        bad = [n for n, p in named if p.dtype != torch.float32]
+        bad = [n for n, p in named if p.dtype != named[0][1].dtype
+               or p.dtype not in (torch.float32, torch.float64)]
         if bad:
-            raise TypeError(f"master parameters must be fp32: {bad[:3]}")
+            raise TypeError(f"master parameters must be fp32 (float64 in tests): {bad[:3]}")
         self.names: List[str] = [n for n, _ in named]
         self.params: List[torch.Tensor] = [p for _, p in named]
         stats = [(n, b) for n, b in model.named_buffers() if n.endswith(_STATS)]
@@ -116,6 +119,32 @@ class _RestoredStats:
                 b.copy_(s)
 
 
+class TrainForward(nn.Module):
+    """The train-mode forward of `model` in the compute dtype (bf16 under
+    autocast), with QAT's fake-quantized weights and inputs when `quant_amax`
+    is given: the module DistributedDataParallel wraps, so that every
+    forward, QAT's too, runs through it."""
+
+    def __init__(self, model: nn.Module, dtype: torch.dtype, quant_amax=None,
+                 quant_skip=("proj_conv",)):
+        super().__init__()
+        self.model = model
+        self.dtype = dtype
+        self.quant_amax = quant_amax
+        self.quant_skip = quant_skip
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=self.dtype == torch.bfloat16):
+            if self.quant_amax is None:
+                return self.model(x)
+            from yololp_tpu_torch.quant.quantize import quantize_weights, quantized_apply
+
+            q = quantize_weights(self.model, skip_substrings=self.quant_skip, train=True)
+            return quantized_apply(self.model, x, self.quant_amax,
+                                   skip_substrings=self.quant_skip, train=True, weights=q)
+
+
 def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverConfig,
                     batch_size: int, quant_amax=None, quant_skip=("proj_conv",),
                     grad_masks=None, teacher=None, distill_cfg=None,
@@ -123,7 +152,8 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverCo
     """train_step(state, images_u8, gt_labels, gt_mask) -> (state, total,
     items). images: (B, H, W, 3) uint8; labels (B, M, 20) and mask (B, M);
     numpy or tensors, moved to the model's device. dtype: the compute dtype
-    (bf16 runs the forward under autocast). quant_amax: {conv path: amax}
+    (bf16 runs the forward under autocast; float64, for a float64 model, is
+    the tests' exact reference). quant_amax: {conv path: amax}
     turns on QAT (conv inputs and kernels fake-quantized, straight-through
     gradient). grad_masks: RepOpt's {parameter name: mask}
     (solver/repopt.py:gradient_masks), applied to the summed gradient before
@@ -131,9 +161,18 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverCo
     with it the loss adds the LP distillation terms (losses/distill.py)
     weighted by distill_cfg {'class', 'dfl', 'temperature'} and by the
     cosine ramp-down at the step's epoch. `state` is the TrainState of
-    `model`, updated in place."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute dtype {dtype}: fp32 or bf16")
+    `model`, updated in place. `batch_size` is the global batch: the
+    accumulation follows it.
+
+    In a process group of more than one rank each rank passes its shard of
+    the global batch and the step computes the global batch's update: the
+    forward runs through DistributedDataParallel (which averages the
+    gradients), each rank's loss is its share of the global loss (losses/)
+    times the world size, BN normalizes by the global batch's statistics,
+    and the returned total and items are the global ones. SGD, the EMA,
+    RepOpt's masks and QAT then run alike on every rank."""
+    if dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"compute dtype {dtype}: fp32 or bf16 (float64 for a float64 model)")
     names = [n for n, _ in model.named_parameters()]
     labels = [label_groups(model)[n] for n in names]
     masks = None
@@ -150,15 +189,15 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverCo
 
         teacher.requires_grad_(False)
 
-    def forward(x):
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype == torch.bfloat16):
-            if quant_amax is None:
-                return model(x)
-            from yololp_tpu_torch.quant.quantize import quantize_weights, quantized_apply
+    world = world_size()
+    net = TrainForward(model, dtype, quant_amax, quant_skip)
+    if world > 1:
+        # DDP broadcasts rank 0's parameters and buffers here and averages
+        # the gradients of the ranks' losses, which are scaled by the world
+        # size below
+        from torch.nn.parallel import DistributedDataParallel
 
-            q = quantize_weights(model, skip_substrings=quant_skip, train=True)
-            return quantized_apply(model, x, quant_amax, skip_substrings=quant_skip, train=True,
-                                   weights=q)
+        net = DistributedDataParallel(net)
 
     def loss(x, out, gt_labels, gt_mask, step: int):
         if teacher is None:
@@ -183,12 +222,21 @@ def make_train_step(model: nn.Module, loss_cfg: LossConfig, solver_cfg: SolverCo
             # a channels_last backward through the train graph at 640 px
             # corrupts the heap in the CPU build of torch 2.13
             x = x.contiguous()
-        total, items = loss(x, forward(x), _batch_tensor(gt_labels, device, torch.float32),
-                            _batch_tensor(gt_mask, device, torch.float32), state.step)
-        total.backward()
-
         step = state.step
-        if step - state.last_opt_step >= accumulate_steps(solver_cfg, batch_size, step):
+        opt_step = step - state.last_opt_step >= accumulate_steps(solver_cfg, batch_size, step)
+        # a micro-step that does not step the optimizer keeps its gradient
+        # on this rank; DDP sums the ranks' accumulated gradients on the next
+        # optimizer step (the same update as a sync on every micro-step)
+        with (net.no_sync() if world > 1 and not opt_step else contextlib.nullcontext()):
+            total, items = loss(x, net(x), _batch_tensor(gt_labels, device, torch.float32),
+                                _batch_tensor(gt_mask, device, torch.float32), step)
+            (total * world if world > 1 else total).backward()
+        if world > 1:
+            # the logged loss is the global batch's: the sum of the ranks' shares
+            both = global_sum(torch.cat([total.detach().view(1), items]))
+            total, items = both[0], both[1:]
+
+        if opt_step:
             lr_w, lr_b, mom = schedule(solver_cfg, step)
             sgd_apply(state.params, state.grad_accum, state.momentum, labels, lr_w, lr_b, mom, wd,
                       grad_masks=masks)

@@ -10,8 +10,10 @@ augment=True is the train protocol: mosaic, mixup, the plate generator's
 warp and paste, random affine, HSV jitter (data/augment.py,
 data/generate.py), drawn from Python's `random` and numpy's global state as
 in the JAX package. cv2 is imported only where an image is read or
-transformed, so the module imports on a machine without it. Multi-process
-sharding (`process_shard`) waits for ROADMAP A.13.
+transformed, so the module imports on a machine without it.
+`process_shard=(rank, world)` gives each rank of a process group its
+strided slice of the dataset, padded by wrapping to one length on every
+rank (the DistributedSampler's rule), so every rank runs the same steps.
 """
 
 from __future__ import annotations
@@ -97,7 +99,8 @@ class TrainValDataset:
     def __init__(self, img_dir: str, img_size: int = 640, augment: bool = False,
                  hyp: Optional[Dict] = None, task: str = "train",
                  max_boxes: int = MAX_BOXES, seed: Optional[int] = None,
-                 cjk_font_path: Optional[str] = None):
+                 cjk_font_path: Optional[str] = None,
+                 process_shard: Optional[Tuple[int, int]] = None):
         self.img_dir = img_dir
         self.img_size = img_size
         self.augment = augment
@@ -105,6 +108,14 @@ class TrainValDataset:
         self.task = task
         self.max_boxes = max_boxes
         self.img_paths, self.labels = scan_dataset(img_dir)
+        if process_shard is not None:
+            # unequal shards would give the ranks different steps an epoch,
+            # and a rank would wait in a collective the others never join
+            rank, world = process_shard
+            n = len(self.img_paths)
+            idxs = [(rank + i * world) % n for i in range(-(-n // world))]
+            self.img_paths = [self.img_paths[i] for i in idxs]
+            self.labels = [self.labels[i] for i in idxs]
         self.gen = PlateGenerator(seed=seed, cjk_font_path=cjk_font_path)
 
     def __len__(self):
@@ -312,16 +323,17 @@ class RectValLoader:
 
 def create_dataloader(path, img_size, batch_size, hyp=None, augment=False, workers=8,
                       shuffle=None, drop_last=None, task="train", max_boxes: int = MAX_BOXES,
-                      seed=None):
+                      seed=None, process_shard=None):
     """The host pipeline: torch.utils.data.DataLoader with `workers` spawned
     processes, or the single-process loader with workers=0. Training drops
-    the last partial batch, so every step has one shape."""
+    the last partial batch, so every step has one shape. `batch_size` is
+    this process's; process_shard=(rank, world) loads the rank's slice."""
     if shuffle is None:
         shuffle = task == "train"
     if drop_last is None:
         drop_last = task == "train"
     dataset = TrainValDataset(path, img_size=img_size, augment=augment, hyp=hyp, task=task,
-                              max_boxes=max_boxes, seed=seed)
+                              max_boxes=max_boxes, seed=seed, process_shard=process_shard)
     if workers > 0:
         from torch.utils.data import DataLoader
 

@@ -16,7 +16,9 @@ requires every augmentation off before it takes this path.
 The JAX package scans the train step over an epoch's (S, B) index matrix in
 one XLA program; here the epoch is an eager loop over the matrix's rows with
 the loss items summed on the device, and nothing is read back to the host
-inside an epoch.
+inside an epoch. In a process group every rank stages the whole dataset on
+its card and computes the same global matrix (a function of the seed and
+the epoch); each rank gathers its block of every row.
 """
 
 from __future__ import annotations
@@ -136,12 +138,18 @@ class DeviceCachedData:
         return self.n // batch_size
 
 
-def make_cached_step(step_fn, img_shape):
+def make_cached_step(step_fn, img_shape, shard=None):
     """cached_step(state, images_all, labels_all, masks_all, idxs): the batch
     gathered on the device from the flat (N, H*W*3) staging layout, then
-    `step_fn`."""
+    `step_fn`. shard=(rank, world): `idxs` is the global batch's row and
+    this rank gathers its contiguous block of it (the JAX package shards the
+    gathered batch over 'data' in the same blocks)."""
     def cached_step(state, images_all, labels_all, masks_all, idxs):
         idxs = torch.as_tensor(idxs).to(images_all.device, torch.long)
+        if shard is not None:
+            r, w = shard
+            hb = idxs.shape[0] // w
+            idxs = idxs[r * hb:(r + 1) * hb]
         images = images_all.index_select(0, idxs).reshape((idxs.shape[0],) + tuple(img_shape))
         return step_fn(state, images, labels_all.index_select(0, idxs),
                        masks_all.index_select(0, idxs))
@@ -149,10 +157,11 @@ def make_cached_step(step_fn, img_shape):
     return cached_step
 
 
-def make_cached_epoch(step_fn, img_shape):
+def make_cached_epoch(step_fn, img_shape, shard=None):
     """epoch_fn(state, images_all, labels_all, masks_all, idx_mat) -> (state,
-    loss items summed over the epoch's steps, on the device)."""
-    cached_step = make_cached_step(step_fn, img_shape)
+    loss items summed over the epoch's steps, on the device). `idx_mat` is
+    the global (S, B) matrix; `shard` as in make_cached_step."""
+    cached_step = make_cached_step(step_fn, img_shape, shard)
 
     def epoch_fn(state, images_all, labels_all, masks_all, idx_mat):
         idx_mat = torch.as_tensor(idx_mat).to(images_all.device, torch.long)
@@ -165,12 +174,12 @@ def make_cached_epoch(step_fn, img_shape):
     return epoch_fn
 
 
-def make_cached_multi_epoch(step_fn, img_shape):
+def make_cached_multi_epoch(step_fn, img_shape, shard=None):
     """K consecutive epochs over a (K, S, B) index tensor: multi_epoch_fn(
     state, images_all, labels_all, masks_all, idx_mats) -> (state, (K, n)
     per-epoch loss-item sums). The same steps as K make_cached_epoch calls
     (the schedules depend on the step count alone)."""
-    epoch_fn = make_cached_epoch(step_fn, img_shape)
+    epoch_fn = make_cached_epoch(step_fn, img_shape, shard)
 
     def multi_epoch_fn(state, images_all, labels_all, masks_all, idx_mats):
         sums = []

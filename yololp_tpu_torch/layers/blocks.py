@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yololp_tpu_torch.parallel.mesh import global_sum_grad, world_size
+
 # Reference BN hyperparams: eps=1e-3, torch momentum=0.03.
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -35,18 +37,45 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm whose training step updates the running statistics as flax
     does: with the biased batch variance (torch's own update uses the
     unbiased one), as `0.97 * running + (1 - 0.97) * batch`. The output is
-    torch's (the batch is normalized by its biased variance in both)."""
+    torch's (the batch is normalized by its biased variance in both).
+
+    In a process group of more than one rank the batch is the global one,
+    as flax's BN under pjit sees it: the per-channel count, sum and sum of
+    squares are summed over the ranks (in fp32, or the input's wider type),
+    the gradient flowing back through the sum to every rank's input. Not
+    torch.nn.SyncBatchNorm, which updates the running variance with the
+    unbiased variance."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if world_size() > 1:
+            return self._global_batch_forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(mean * (1.0 - keep))
-            self.running_var.mul_(keep).add_(var * (1.0 - keep))
-            self.num_batches_tracked.add_(1)
+            var, mean = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)),
+                                       dim=(0, 2, 3), unbiased=False)
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _update_running(self, mean, var):
+        keep = 1.0 - self.momentum
+        self.running_mean.mul_(keep).add_(mean * (1.0 - keep))
+        self.running_var.mul_(keep).add_(var * (1.0 - keep))
+        self.num_batches_tracked.add_(1)
+
+    def _global_batch_forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+        sums = global_sum_grad(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self._update_running(mean.detach(), var.detach())
+        scale = self.weight.to(xf.dtype) * torch.rsqrt(var + self.eps)
+        shift = self.bias.to(xf.dtype) - mean * scale
+        return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

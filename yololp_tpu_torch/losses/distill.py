@@ -8,7 +8,9 @@ weight ramps down over training as (1 + cos(pi * epoch / epochs)) / 2.
 
 Held against the jitted JAX function: its divisions by a constant (`/ 8.0`,
 the DFL logits' `/ temperature`) are reciprocal multiplies (ops/division.py);
-the sums' denominators are traced values and stay true divisions. The
+the sums' denominators are traced values and stay true divisions. In a
+process group the foreground count is the global batch's (summed over the
+ranks), so each rank's terms are its share of the global ones. The
 schedule is computed on the host in the jitted program's fp32 arithmetic,
 as solver/build.py computes the lr cosine.
 """
@@ -22,6 +24,7 @@ import torch
 
 from yololp_tpu_torch.models.effidehead import HeadTrainOutput
 from yololp_tpu_torch.ops.division import div_const
+from yololp_tpu_torch.parallel.mesh import global_sum
 from yololp_tpu_torch.solver.build import _F32, _rcp
 
 _EPS = 1e-9
@@ -52,7 +55,7 @@ def distill_loss(student: HeadTrainOutput, teacher: HeadTrainOutput, fg_mask: to
     """(cls_kd, dfl_kd) scalars averaged over the foreground anchors of
     `fg_mask` (B, A). The teacher's outputs carry no gradient."""
     fg = fg_mask.float()
-    denom = torch.clamp(fg.sum(), min=1.0)
+    denom = torch.clamp(global_sum(fg.sum()), min=1.0)  # over the ranks' global batch
     t = lambda x: _temper(x.detach(), temperature)  # noqa: E731
     s = lambda x: _temper(x, temperature)  # noqa: E731
 

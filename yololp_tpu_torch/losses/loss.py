@@ -5,6 +5,11 @@ Targets arrive padded to (B, M, 20) with a mask, so no step syncs the host
 or depends on how many boxes are real. Returns (total, items[7]) with items =
 [iou, corner, dfl, cls, pro, alp, ads/6]; `with_fg` adds the fg mask.
 
+In a process group of more than one rank each rank holds its shard of the
+global batch: the denominators (the summed target scores) are summed over
+the ranks, so each rank's total and items are its share of the global
+batch's, and the ranks' shares add up to the single-process loss.
+
 Held against the jitted JAX function: its divisions by a constant are
 reciprocal multiplies (`ads / 6`, ops/division.py; the others divide by
 powers of two, where both agree), its clips split a tie's gradient in half
@@ -25,12 +30,14 @@ from yololp_tpu_torch.ops.anchors import anchors_train
 from yololp_tpu_torch.ops.division import div_const
 from yololp_tpu_torch.ops.geometry import (bbox2dist, dist2bbox, dist2cor, iou_loss as iou_loss_fn,
                                            xywh2xyxy)
+from yololp_tpu_torch.parallel.mesh import global_sum
 
 
 def varifocal_loss(pred_score, gt_score, label, alpha=0.75, gamma=2.0):
-    """Sum-reduced varifocal loss, in fp32."""
-    pred = pred_score.float()
-    gt = gt_score.float()
+    """Sum-reduced varifocal loss, in fp32 (float64 for float64 scores)."""
+    wide = torch.promote_types(pred_score.dtype, torch.float32)
+    pred = pred_score.to(wide)
+    gt = gt_score.to(wide)
     weight = alpha * torch.pow(pred, gamma) * (1.0 - label) + gt * label
     eps = 1e-12
     bce = -(gt * torch.log(pred.clamp(eps, 1.0)) + (1.0 - gt) * torch.log((1.0 - pred).clamp(eps, 1.0)))
@@ -132,7 +139,7 @@ def assign(outputs: HeadTrainOutput, gt_labels: torch.Tensor, gt_mask: torch.Ten
     if cfg.use_dfl:
         b, a, _ = reg.shape
         prob = torch.softmax(reg.reshape(b, a, 4, cfg.reg_max + 1), -1)
-        proj = torch.arange(cfg.reg_max + 1, dtype=torch.float32, device=dev)
+        proj = torch.arange(cfg.reg_max + 1, dtype=prob.dtype, device=dev)
         reg_dist = torch.einsum("bakr,r->bak", prob, proj)
     else:
         reg_dist = reg
@@ -166,16 +173,19 @@ def loss_terms(outputs: HeadTrainOutput, asg: Assignment, cfg: LossConfig,
     loss_pro = varifocal_loss(outputs.pro, res.target_pro_scores, _one_hot(res.target_pro, cfg.npro))
     loss_alp = varifocal_loss(outputs.alp, res.target_alp_scores, _one_hot(res.target_alp, cfg.nalp))
     one_hot_ads = _one_hot(res.target_ads, cfg.nads)
+    # the denominators: sums over the global batch (over the ranks of a
+    # process group, the partitioned JAX program's sums), in one collective
+    sums = global_sum(torch.stack([res.target_pro_scores.sum(), res.target_alp_scores.sum()]
+                                  + [res.target_ads_scores[:, :, i].sum() for i in range(6)]))
+    pro_sum, alp_sum = sums[0], sums[1]
     ads_losses, ads_sums = [], []
     for i in range(6):
         li = varifocal_loss(outputs.ads[:, :, i], res.target_ads_scores[:, :, i],
                             one_hot_ads[:, :, i])
-        si = res.target_ads_scores[:, :, i].sum()
+        si = sums[2 + i]
         ads_losses.append(_norm(li, si))
         ads_sums.append(si)
 
-    pro_sum = res.target_pro_scores.sum()
-    alp_sum = res.target_alp_scores.sum()
     loss_pro = _norm(loss_pro, pro_sum)
     loss_alp = _norm(loss_alp, alp_sum)
     loss_ads = sum(ads_losses)

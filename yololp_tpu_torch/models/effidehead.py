@@ -89,9 +89,10 @@ class Detect(nn.Module):
             reg_flat.append(regcor[..., :self.nreg])
             cor_flat.append(regcor[..., self.nreg:])
 
-        cls_scores = torch.sigmoid(torch.cat(cls_flat, 1).float())
-        reg_distri = torch.cat(reg_flat, 1).float()
-        cor_distri = torch.cat(cor_flat, 1).float()
+        wide = torch.promote_types(cls_flat[0].dtype, torch.float32)  # fp32; float64 stays
+        cls_scores = torch.sigmoid(torch.cat(cls_flat, 1).to(wide))
+        reg_distri = torch.cat(reg_flat, 1).to(wide)
+        cor_distri = torch.cat(cor_flat, 1).to(wide)
         if self.training:
             b, a = cls_scores.shape[:2]
             npa = self.npro + self.nalp
@@ -107,8 +108,7 @@ class Detect(nn.Module):
         if self.use_dfl:
             b, a, _ = reg_distri.shape
             dist = torch.softmax(reg_distri.reshape(b, a, 4, self.reg_max + 1), dim=-1)
-            proj = torch.arange(self.reg_max + 1, dtype=torch.float32,
-                                device=dist.device)
+            proj = torch.arange(self.reg_max + 1, dtype=dist.dtype, device=dist.device)
             reg_dist = torch.einsum("bakr,r->bak", dist, proj)
         else:
             reg_dist = reg_distri

@@ -118,9 +118,11 @@ def int8_conv_cuda(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
     fn = _launcher(lib)
     wmap = weight_map(lib, w_q)
     stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    err = fn(x_q.data_ptr(), wmap, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-             n, h, w, c, o, kh, stride, _MODES[out_dtype], int(relu),
-             x_q.device.index or 0, stream)
+    # the launcher sets its device: the guard puts the caller's back after
+    with torch.cuda.device(x_q.device):
+        err = fn(x_q.data_ptr(), wmap, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 n, h, w, c, o, kh, stride, _MODES[out_dtype], int(relu),
+                 x_q.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: error {err} (a cudaError_t, "
                            f"or 9999 / 10000 + CUresult from the tensor-map encoder)")

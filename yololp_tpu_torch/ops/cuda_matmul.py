@@ -154,8 +154,10 @@ def _launch(a, lda, b, ldb, b_mn: bool, n: int) -> torch.Tensor:
         return out
     fn = _launcher()
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), lda, b.data_ptr(), ldb, int(b_mn), out.data_ptr(), m, n, k, mode,
-             a.device.index or 0, stream)
+    # the launcher sets its device: the guard puts the caller's back after
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), lda, b.data_ptr(), ldb, int(b_mn), out.data_ptr(), m, n, k,
+                 mode, a.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"mxu_matmul kernel launch failed: error {err} (a cudaError_t, "
                            f"or 9999 / 10000 + CUresult from the tensor-map encoder)")

@@ -147,8 +147,10 @@ def greedy_nms_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     if b == 0 or k == 0:
         return keep
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = _launcher()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
-             float(iou_thres), boxes.device.index or 0, stream)
+    # the launcher sets its device: the guard puts the caller's back after
+    with torch.cuda.device(boxes.device):
+        err = _launcher()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
+                          float(iou_thres), boxes.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
     launches += 1

@@ -9,7 +9,10 @@ and the speed report (pre / infer / post ms per image).
 
 `--synthetic-data` takes a root written by the JAX package's
 `data.synthetic.make_synthetic_dataset`. True int8: add `--int8 --calib-pt
-amax.json --conv-impl {conv,dots,pallas}`.
+amax.json --conv-impl {conv,dots,pallas}`. `--mesh N` splits every batch
+over N cards, one model replica each (parallel/infer.py; with --device cpu,
+N replicas on the CPU); with --int8 the int8 program runs on one card, as
+the JAX CLI's run_eval does with a given run_fn.
 """
 
 from __future__ import annotations
@@ -20,8 +23,7 @@ import os
 import os.path as osp
 
 # flags of the JAX CLI that the port refuses, with the ROADMAP item that brings them
-NOT_PORTED = {"mesh": "--mesh (multi-GPU eval) waits for ROADMAP A.13",
-              "native_preproc": "--native-preproc waits for ROADMAP A.15",
+NOT_PORTED = {"native_preproc": "--native-preproc waits for ROADMAP A.15",
               "approx": "--nms-selector approx: there is no Hopper counterpart of "
                         "lax.approx_max_k (ROADMAP A.5); use topk"}
 
@@ -45,7 +47,8 @@ def get_args_parser():
     p.add_argument("--rect", action="store_true",
                    help="rect-batched val (aspect-sorted batches, pad 0.5, shapes "
                         "rounded up to 64 px)")
-    p.add_argument("--mesh", type=int, default=0, help="refused: " + NOT_PORTED["mesh"])
+    p.add_argument("--mesh", type=int, default=0,
+                   help="split each batch over this many cards (0 or 1: one device)")
     p.add_argument("--nms-selector", default="topk", choices=["topk", "approx"])
     p.add_argument("--native-preproc", action="store_true",
                    help="refused: " + NOT_PORTED["native_preproc"])
@@ -132,7 +135,7 @@ def print_report(results, speed):
 def main(args=None):
     parser = get_args_parser()
     args = parser.parse_args(args)
-    for flag, on in (("mesh", args.mesh), ("native_preproc", args.native_preproc),
+    for flag, on in (("native_preproc", args.native_preproc),
                      ("approx", args.nms_selector == "approx")):
         if on:
             parser.error(NOT_PORTED[flag])
@@ -168,6 +171,12 @@ def main(args=None):
                       npro=int(data_dict.get("npro", 31)), nalp=int(data_dict.get("nalp", 24)),
                       nads=int(data_dict.get("nads", 37)), device=args.device)
 
+    mesh = None
+    if args.mesh > 1:
+        from yololp_tpu_torch.parallel.infer import infer_mesh
+
+        mesh = infer_mesh(args.mesh, args.device)
+
     run_fn = None
     if args.int8:
         from yololp_tpu_torch.quant.int8_infer import make_int8_infer_fn
@@ -188,7 +197,7 @@ def main(args=None):
             half=args.half, workers=args.workers, eval_hyp=eval_hyp,
             task="val" if args.task == "speed" else args.task,
             return_preds=args.save_json, run_fn=run_fn, rect=args.rect,
-            nms_selector=args.nms_selector, device=args.device)
+            mesh=mesh, nms_selector=args.nms_selector, device=args.device)
     if args.save_json:
         results, speed, (preds, targets, paths) = out
         from yololp_tpu_torch.utils.coco import cocoeval_if_available

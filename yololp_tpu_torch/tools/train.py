@@ -12,15 +12,27 @@ Examples:
   python -m yololp_tpu_torch.tools.train --conf-file yololpn --distill \\
       --teacher-ckpt runs/train/yololps/weights/best_ckpt.msgpack --teacher-conf yololps ...
 
-One device, one process: `--device cuda` (the default) or `cpu`. Writes
-last/best checkpoints and final_ckpt.msgpack under <output-dir>/<name>/weights
-in the JAX package's msgpack format (either package loads them).
+  # data-parallel: one process per card, --batch-size is the global batch
+  torchrun --nproc_per_node 4 -m yololp_tpu_torch.tools.train --conf-file yololps ...
+  python -m yololp_tpu_torch.tools.train --conf-file yololps ...  # spawns one rank per card
+
+`--device cuda` (the default) or `cpu`. Under torchrun (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT in the environment) each process joins
+the group (NCCL on cards, gloo with --device cpu) and takes the card of its
+LOCAL_RANK; without torchrun, --data-parallel (the default) with more than
+one visible card spawns one process per card. Rank 0 writes the synthetic
+set, the checkpoints and the log. Writes last/best checkpoints and
+final_ckpt.msgpack under <output-dir>/<name>/weights in the JAX package's
+msgpack format (either package loads them).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import os.path as osp
+import socket
+import sys
 
 
 def get_args_parser():
@@ -53,7 +65,9 @@ def get_args_parser():
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--fp32", dest="bf16", action="store_false")
     p.add_argument("--data-parallel", action="store_true", default=True,
-                   help="accepted; one device only (multi-GPU waits for ROADMAP A.13)")
+                   help="with more than one visible card, no torchrun environment and "
+                        "--device cuda, spawn one process per card (the batch is split "
+                        "over them); --device cuda:N trains on card N alone")
     p.add_argument("--cache-device", action="store_true",
                    help="stage the whole dataset on the device and gather batches there "
                         "(no-augmentation runs only)")
@@ -78,25 +92,75 @@ def get_args_parser():
     return p
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(i: int, argv, world: int, port: int):
+    """One rank of a --data-parallel spawn: torchrun's environment, then main."""
+    os.environ.update(RANK=str(i), LOCAL_RANK=str(i), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    main(argv)
+
+
 def main(args=None):
     parser = get_args_parser()
-    args = parser.parse_args(args)
+    argv = list(sys.argv[1:] if args is None else args)
+    args = parser.parse_args(argv)
     if not (args.synthetic_data or args.data_path):
         parser.error("--data-path or --synthetic-data required")
-    from yololp_tpu_torch.core.engine import Trainer
-    from yololp_tpu_torch.data.vocab import load_dataset_yaml
-    from yololp_tpu_torch.utils.config import Config
+    import torch
+
+    from yololp_tpu_torch.parallel.mesh import barrier, initialize_distributed, local_rank
     from yololp_tpu_torch.utils.device import resolve_device
 
-    resolve_device(args.device)  # no card and not --device cpu: raise before any work
+    dev = resolve_device(args.device)  # no card and not --device cpu: raise before any work
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if (args.data_parallel and "WORLD_SIZE" not in os.environ and dev.type == "cuda"
+            and dev.index is None and n_cards > 1):
+        if args.batch_size % n_cards:
+            parser.error(f"{n_cards} cards must divide the global --batch-size {args.batch_size}")
+        torch.multiprocessing.spawn(_spawned_rank, args=(argv, n_cards, _free_port()),
+                                    nprocs=n_cards)
+        return None
+    # under torchrun: join the group before anything else
+    joined = initialize_distributed("gloo" if dev.type == "cpu" else "nccl")
+    if joined and dev.type == "cuda" and dev.index is None:
+        args.device = f"cuda:{local_rank()}"
+    try:
+        best = _train(args)
+        barrier()
+        return best
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args):
+    from yololp_tpu_torch.core.engine import Trainer
+    from yololp_tpu_torch.data.vocab import load_dataset_yaml
+    from yololp_tpu_torch.parallel.mesh import barrier, is_main_process
+    from yololp_tpu_torch.utils.config import Config
+
     cfg = (Config.fromfile(args.conf_file) if args.conf_file.endswith(".py")
            else Config.named(args.conf_file))
     if args.synthetic_data:
         from yololp_tpu_torch.data.synthetic import make_synthetic_dataset
 
-        data_dict = make_synthetic_dataset(
-            osp.join(args.output_dir, "synthetic_data"), n_train=args.synthetic_n,
-            n_val=max(args.synthetic_n // 4, 4), img_size=args.img_size, seed=args.seed)
+        root = osp.join(args.output_dir, "synthetic_data")
+        if is_main_process():
+            # one writer: ranks writing the same files would race
+            data_dict = make_synthetic_dataset(
+                root, n_train=args.synthetic_n, n_val=max(args.synthetic_n // 4, 4),
+                img_size=args.img_size, seed=args.seed)
+        else:
+            data_dict = {"train": osp.join(root, "images", "train"),
+                         "val": osp.join(root, "images", "val"),
+                         "test": osp.join(root, "images", "val"),
+                         "is_coco": False, "npro": 31, "nalp": 24, "nads": 37}
+        barrier()
     else:
         data_dict = load_dataset_yaml(args.data_path)
     args.save_dir = osp.join(args.output_dir, args.name)
@@ -111,8 +175,9 @@ def main(args=None):
             trainer.resume(resume_path)
         return trainer.calibrate()
     best = trainer.train(resume_path=resume_path)
-    print(f"Training done. best mAP={best:.4f}. Checkpoints in "
-          f"{osp.join(args.save_dir, 'weights')}")
+    if is_main_process():
+        print(f"Training done. best mAP={best:.4f}. Checkpoints in "
+              f"{osp.join(args.save_dir, 'weights')}")
     return best
 
 
