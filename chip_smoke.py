@@ -156,7 +156,28 @@ toolkit. Phases, each of which raises on failure:
      frames (held as memos), eval on rank 0 only (greedy_nms launches there
      and nowhere else), one checkpoint that reloads as rank 0's EMA fused
      bit for bit, the EMA equal on every rank; with one card, the Trainer
-     once more under NCCL at world size 1.
+     once more under NCCL at world size 1;
+  21. export (yololp_tpu_torch.export, deploy/aoti_cpp): the bf16 end2end
+     program of phase 4's inferer and the int8 one on phase 7's
+     calibration (the conv plan), each returning its decode beside
+     det/valid/num, taken by torch.export at batch 32 and 640. Saved and
+     loaded as a .pt2: greedy_nms once and int8_conv as often as eager (68)
+     a batch, det/valid/num equal to the plain CPU NMS on its own decode
+     and to eager's bit for bit. Compiled into an AOTInductor package
+     (compile seconds printed) and run through aoti_load_package: the same
+     launch counts, read from inside the package; det/valid/num equal to
+     the plain CPU NMS on the package's own decode; the bf16 decode within
+     EXPORT_* of eager's; the int8 decode's boxes and corners equal to the
+     eager conv plan's bit for bit and its scores within EXPORT_SCORE_ATOL,
+     valid and num equal; the kernels by name in a profiler table of one
+     batch. The C++ runner (built beside phases 3-20) runs --bench 20 on
+     both packages: its first LCG batch's num equals the Python package's
+     on that batch, rebuilt in numpy, and it reports one greedy_nms and 68
+     int8_conv launches a batch. img/s of eager, the .pt2, the package and
+     the runner's sync and pipelined loops by CUDA events (the runner by
+     its host clock); the host cost of an op dispatch against the launcher
+     called directly (and a torch.library.custom_op twin), times the
+     launches a batch.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -170,6 +191,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -214,6 +236,14 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def timed_build_runner():
+    """(the C++ runner's binary, its build's seconds)."""
+    from yololp_tpu_torch.deploy.aoti_cpp import build_runner
+
+    t0 = time.perf_counter()
+    return build_runner(), time.perf_counter() - t0
 
 
 def cuda_ms(fn, reps: int, windows: int = 5) -> list:
@@ -415,7 +445,8 @@ def phase_nms_times(results, card, cuda_nms, box_k, score_k, thr, pred, nms_kw):
         kept = keep.sum(1)
         for _ in range(5):
             cuda_nms.greedy_nms_mask(bx, sc, thr)
-        ms = float(np.median(cuda_ms(lambda: cuda_nms.greedy_nms_mask(bx, sc, thr), 100)))
+        # the launcher directly (its dispatch as an op: phase 21)
+        ms = float(np.median(cuda_ms(lambda: cuda_nms.greedy_nms_mask_cuda(bx, sc, thr), 100)))
         dev_ms = kernel_device_ms(lambda: cuda_nms.greedy_nms_mask(bx, sc, thr), "greedy_nms_kernel", 20)
         plain_ms = float(np.median(cuda_ms(lambda: cuda_nms.greedy_nms_mask_plain(bx, sc, thr), 4)))
         bound_ms, bound_by = nms_bound(b, bx.shape[1])
@@ -848,8 +879,10 @@ def library_mm(a, b):
 
 def time_matmul(cuda_matmul, a, b, reps=10, nt=False):
     """(kernel ms, plain ms, library ms or None) of a @ b (with `nt`,
-    a @ b.T by matmul_nt), CUDA events, medians of 5 windows."""
-    mm = cuda_matmul.matmul_nt if nt else cuda_matmul.matmul
+    a @ b.T by matmul_nt), CUDA events, medians of 5 windows. The launcher
+    is called directly, as phase 8 times int8_conv: a small launch sits on
+    the host's floor, and the op's dispatch (phase 21) would add to it."""
+    mm = cuda_matmul.matmul_nt_cuda if nt else cuda_matmul.matmul_cuda
     plain = cuda_matmul.matmul_nt_plain if nt else cuda_matmul.matmul_plain
     for _ in range(3):
         mm(a, b)
@@ -2544,6 +2577,252 @@ def phase_ddp(results, card, dev, train_model, cfg, eval_frames):
     print(f"phase 20 in {out['seconds']:.0f} s")
     results["ddp"] = out
 
+# phase 21: the AOTInductor package's bf16 decode against eager's on the
+# same batch. Inductor fuses the elementwise work around the convs and
+# rounds bf16 at other places than eager (emulate_precision_casts narrows
+# the gap but fused passes still differ); the bound is phase 19's for two
+# runs of one bf16 model
+EXPORT_RTOL, EXPORT_ATOL_PX, EXPORT_ATOL_SCORE = 2e-2, 1.0, 2e-2
+# phase 21, the int8 package against the eager conv plan: its decode's boxes
+# and corners (columns :13) equal bit for bit (a flipped int8 code would move
+# them) and its scores within two fp32 ULPs at 1.0: Inductor's fused sigmoid
+# rounds in the last bit where eager's does not (found on the card). So the
+# detections are eager's up to the order of candidates whose scores lie that
+# close (swaps were seen on the card), and valid and num equal eager's
+EXPORT_SCORE_ATOL = 2.0 ** -22
+RUNNER_ITERS = 20  # the C++ runner's --bench
+DISPATCH_CALLS = 200  # host cost of an op dispatch: calls timed
+
+
+class WithDecode(torch.nn.Module):
+    """An end2end export program (yololp_tpu_torch.export's ExportModel)
+    that also returns its raw decode, so that its detections can be held
+    against the plain CPU NMS on the same program's own decode: (det, valid,
+    num, pred). The runner reads `num` as output 2, as from the export."""
+
+    def __init__(self, export_model):
+        super().__init__()
+        self.m = export_model
+
+    def forward(self, images_u8):
+        from yololp_tpu_torch.ops.nms import non_max_suppression
+
+        pred = self.m.decode(images_u8)
+        return (*non_max_suppression(pred.float(), **self.m.nms_kw), pred)
+
+
+def lcg_batch(batch, size):
+    """The C++ runner's first staged batch (deploy/aoti_cpp/yololp_runner.cpp,
+    the JAX runner's LCG: x = 1664525 x + 1013904223 mod 2**32 from 12345,
+    the byte x >> 24) in closed form: x_i = a**i x_0 + c (a**0 + ... +
+    a**(i-1)), in uint32 arithmetic that wraps as C++'s unsigned does."""
+    n = batch * size * size * 3
+    powers = np.cumprod(np.full(n, 1664525, np.uint32), dtype=np.uint32)  # a**1 .. a**n
+    geo = np.cumsum(np.concatenate([np.ones(1, np.uint32), powers[:-1]]), dtype=np.uint32)
+    x = powers * np.uint32(12345) + geo * np.uint32(1013904223)
+    return (x >> np.uint32(24)).astype(np.uint8).reshape(batch, size, size, 3)
+
+
+def nms_on_own_decode(out, kw, what):
+    """(det, valid, num, pred) of a program: det/valid/num equal the plain
+    CPU NMS on its own decode, exactly. Returns the kept range."""
+    from yololp_tpu_torch.ops.nms import non_max_suppression
+
+    pred = out[3].float().cpu()
+    if not torch.isfinite(pred).all():
+        raise AssertionError(f"{what}: non-finite decode")
+    want = non_max_suppression(pred, **kw)
+    for name, a, b in zip(("det", "valid", "num"), out[:3], want):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{what}: {name} != the plain CPU NMS on its own decode")
+    return int(want[2].min()), int(want[2].max())
+
+
+def host_us(fn, calls=DISPATCH_CALLS):
+    """Host microseconds a call of `fn` takes to enqueue its work (the card
+    is not waited for inside the window)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
+
+
+def counted(fn, *counters):
+    """fn()'s output and each module's `launches` over the call."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [c.launches for c in counters]
+
+
+def _nms_custom_op(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    from yololp_tpu_torch.ops import cuda_nms
+
+    return cuda_nms.greedy_nms_mask_cuda(boxes, scores, iou_thres)
+
+
+def phase_export(results, card, dev, inferer, ctx8, batch, runner_build):
+    """21. Export on the card: the bf16 and int8 end2end programs of
+    yololp_tpu_torch.export (plus their decode), as a .pt2 saved and loaded,
+    as an AOTInductor package, and under the C++ runner."""
+    import tempfile
+
+    from yololp_tpu_torch.deploy import aoti_cpp
+    from yololp_tpu_torch.export.export import build_export_fn, compile_aoti, export_program
+    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops.nms import select_candidates
+    from yololp_tpu_torch.quant.int8_infer import make_int8_infer_fn
+
+    t_phase = time.perf_counter()
+    staged = torch.from_numpy(batch).to(dev)
+    lcg = torch.from_numpy(lcg_batch(BATCH, IMG)).to(dev)
+    inferer8, amax, conf8 = ctx8["inferer8"], ctx8["amax"], ctx8["conf"]
+    run8 = make_int8_infer_fn(inferer8.model, inferer8.variables, amax, conf_thres=conf8,
+                              iou_thres=0.45, max_det=1000, conv_impl="conv", device=dev)
+    flavours = [("bf16", inferer.model, inferer.variables, None, inferer.conf_thres,
+                 lambda: inferer._run(staged)),
+                ("int8", inferer8.model, inferer8.variables, amax, conf8, lambda: run8(staged))]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, model, variables, calib, conf, eager in flavours:
+            kw = dict(conf_thres=conf, iou_thres=0.45, max_det=1000)
+            t0 = time.perf_counter()
+            prog = export_program(WithDecode(build_export_fn(model, variables, calib_amax=calib,
+                                                             **kw)), BATCH, IMG, dev)
+            export_s = time.perf_counter() - t0
+            nodes = [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
+            n_nms = sum("yololp_torch.greedy_nms_mask" in t for t in nodes)
+            n_conv = sum("yololp_torch.int8_conv" in t for t in nodes)
+            want, (eager_nms, eager_conv) = counted(eager, cuda_nms, cuda_conv)
+
+            path = os.path.join(tmp, f"{label}.pt2")
+            torch.export.save(prog, path)
+            loaded = torch.no_grad()(torch.export.load(path).module())
+            got, (nms_n, conv_n) = counted(lambda: loaded(staged), cuda_nms, cuda_conv)
+            kept = nms_on_own_decode(got, kw, f"{label} .pt2")
+            if (nms_n, conv_n) != (1, eager_conv) or (n_nms, n_conv) != (1, eager_conv):
+                raise AssertionError(f"{label} .pt2: greedy_nms {nms_n}, int8_conv {conv_n} "
+                                     f"launches a batch, {n_nms} / {n_conv} nodes; eager "
+                                     f"{eager_nms} / {eager_conv}")
+            for name, a, b in zip(("det", "valid", "num"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label} .pt2: {name} != the eager run's")
+            print(f"[{card}] phase 21 {label}: torch.export in {export_s:.1f} s, "
+                  f"{n_nms} greedy_nms_mask and {n_conv} int8_conv nodes; the .pt2 saved and "
+                  f"loaded: greedy_nms {nms_n}, int8_conv {conv_n} launches a batch (eager "
+                  f"{eager_nms} / {eager_conv}); det/valid/num == plain CPU NMS on its own "
+                  f"decode (kept {kept[0]}..{kept[1]}) and == the eager run, bit for bit",
+                  flush=True)
+
+            aoti_path, compile_s = compile_aoti(prog, os.path.join(tmp, f"{label}.aoti.pt2"))
+            pkg = torch._inductor.aoti_load_package(aoti_path)
+            got_a, (nms_a, conv_a) = counted(lambda: pkg(staged), cuda_nms, cuda_conv)
+            kept = nms_on_own_decode(got_a, kw, f"{label} AOTInductor")
+            if (nms_a, conv_a) != (1, eager_conv):
+                raise AssertionError(f"{label} AOTInductor: greedy_nms {nms_a}, int8_conv "
+                                     f"{conv_a} launches a batch; eager {eager_nms} / {eager_conv}")
+            # eager's decode: the .pt2's, which replays eager's ops bit for bit
+            dec_a, dec_e = got_a[3].float().cpu(), got[3].float().cpu()
+            err_px = float((dec_a[..., :13] - dec_e[..., :13]).abs().max())
+            err_score = float((dec_a[..., 13:] - dec_e[..., 13:]).abs().max())
+            if calib is None and not (
+                    torch.allclose(dec_a[..., :13], dec_e[..., :13], rtol=EXPORT_RTOL,
+                                   atol=EXPORT_ATOL_PX)
+                    and torch.allclose(dec_a[..., 13:], dec_e[..., 13:], rtol=0,
+                                       atol=EXPORT_ATOL_SCORE)):
+                raise AssertionError(f"{label} AOTInductor decode vs eager: {err_px} px, "
+                                     f"{err_score} score, beyond the bf16 tolerance")
+            same = [torch.equal(a, b) for a, b in zip(got_a[:3], want)]
+            rows_differ = int((got_a[0] != want[0]).any(-1).sum())
+            if calib is not None and not (err_px == 0 and err_score <= EXPORT_SCORE_ATOL
+                                          and all(same[1:])):
+                raise AssertionError(f"int8 AOTInductor vs the eager conv plan: decode {err_px} "
+                                     f"px, {err_score} score apart; valid, num equal: "
+                                     f"{same[1:]}")
+            print(f"[{card}] phase 21 {label}: AOTInductor package compiled in {compile_s:.1f} s; "
+                  f"greedy_nms {nms_a}, int8_conv {conv_a} launches a batch from inside it; "
+                  f"det/valid/num == plain CPU NMS on its own decode (kept {kept[0]}..{kept[1]}); "
+                  f"its decode vs eager's max |diff| {err_px:.4g} px, {err_score:.4g} score "
+                  f"(bf16 tolerance rtol {EXPORT_RTOL} + {EXPORT_ATOL_PX} px, "
+                  f"{EXPORT_ATOL_SCORE} score; int8: 0 px, {EXPORT_SCORE_ATOL:.3g} score); "
+                  f"det/valid/num equal to eager's: {same} ({rows_differ} detection rows "
+                  f"differ)", flush=True)
+            profile = profile_batch(lambda: pkg(staged), card, label=f"{label} AOTInductor")
+            for kernel in ("greedy_nms_kernel",) + (("int8_conv_kernel",) if calib else ()):
+                if not any(kernel in k for k in profile["by_name"]):
+                    raise AssertionError(f"{label} AOTInductor: {kernel} missing from the profile")
+
+            times = {}
+            for name, fn in (("eager", eager), ("pt2", lambda: loaded(staged)),
+                             ("aoti", lambda: pkg(staged))):
+                for _ in range(3):
+                    fn()
+                ms = float(np.median(cuda_ms(fn, 2)))
+                times[name] = dict(ms=ms, img_s=BATCH * 1e3 / ms)
+            binary, build_s = runner_build.result()
+            py_num = pkg(lcg)[2].cpu().tolist()
+            rec = aoti_cpp.bench(binary, aoti_path, RUNNER_ITERS, BATCH, IMG)
+            want_launches = {"greedy_nms": 1.0, "int8_conv": float(eager_conv)}
+            if rec["first_num"] != py_num or rec["launches_per_batch"] != want_launches:
+                raise AssertionError(f"{label} runner: num {rec['first_num']} (Python package "
+                                     f"{py_num}), launches a batch {rec['launches_per_batch']} "
+                                     f"(want {want_launches})")
+            times["runner_sync"] = dict(ms=rec["sync"]["ms_per_batch"],
+                                        img_s=rec["sync"]["images_per_sec"])
+            times["runner_pipelined"] = dict(ms=rec["pipelined"]["ms_per_batch"],
+                                             img_s=rec["pipelined"]["images_per_sec"])
+            print(f"[{card}] phase 21 {label}: C++ runner (built in {build_s:.1f} s beside phases "
+                  f"3-20) --bench {RUNNER_ITERS} --batch {BATCH}: "
+                  f"first LCG batch's num == the Python package's ({min(py_num)}..{max(py_num)}), "
+                  f"launches a batch {rec['launches_per_batch']}")
+            print(f"[{card}] phase 21 {label} img/s at batch {BATCH} (uint8 on the card in, "
+                  f"dets out; CUDA events, median of 5 windows of 2 batches; the runner by its "
+                  f"host clock): " + ", ".join(f"{k} {v['img_s']:.1f} ({v['ms']:.3f} ms)"
+                                               for k, v in times.items()), flush=True)
+            out[label] = dict(export_s=export_s, compile_s=compile_s, nodes=[n_nms, n_conv],
+                              launches_pt2=[nms_n, conv_n], launches_aoti=[nms_a, conv_a],
+                              launches_eager=[eager_nms, eager_conv], decode_err_px=err_px,
+                              decode_err_score=err_score, equal_to_eager=same,
+                              det_rows_differ=rows_differ, times=times,
+                              runner=rec, profile=profile)
+
+    # host cost of an op dispatch against a direct call of the launcher
+    pred = inferer.predict(staged)
+    box_k, score_k, _ = select_candidates(pred, inferer.conf_thres, TOPK)
+    nms_custom = torch.library.custom_op("yololp_smoke::greedy_nms_mask", _nms_custom_op,
+                                         mutates_args=())
+    x_q = torch.randint(-128, 128, (BATCH, 80, 80, 128), dtype=torch.int8, device=dev)
+    w_q = torch.randint(-128, 128, (128, 3, 3, 128), dtype=torch.int8, device=dev)
+    a, b = torch.full((128,), 1e-3, device=dev), torch.zeros(128, device=dev)
+    us = {"greedy_nms": dict(
+              op=host_us(lambda: torch.ops.yololp_torch.greedy_nms_mask(box_k, score_k, 0.45)),
+              direct=host_us(lambda: cuda_nms.greedy_nms_mask_cuda(box_k, score_k, 0.45)),
+              custom_op=host_us(lambda: nms_custom(box_k, score_k, 0.45)), per_batch=1),
+          "int8_conv": dict(
+              op=host_us(lambda: torch.ops.yololp_torch.int8_conv(x_q, w_q, a, b, 1, True,
+                                                                    torch.int8)),
+              direct=host_us(lambda: cuda_conv.int8_conv_cuda(x_q, w_q, a, b, 1, True,
+                                                               torch.int8)),
+              per_batch=out["int8"]["launches_aoti"][1])}
+    for name, r in us.items():
+        extra = r["per_batch"] * (r["op"] - r["direct"])
+        print(f"[{card}] phase 21 dispatch: {name} through torch.ops {r['op']:.2f} us a call, "
+              f"the launcher called directly {r['direct']:.2f} us"
+              + (f", a torch.library.custom_op twin {r['custom_op']:.2f} us" if "custom_op" in r
+                 else "")
+              + f"; x {r['per_batch']} launches a batch = {extra:.1f} us a batch (host clock, "
+              f"{DISPATCH_CALLS} calls)")
+    out["dispatch_us"] = us
+    out["seconds"] = time.perf_counter() - t_phase
+    results["export"] = out
+    print(f"phase 21 in {out['seconds']:.0f} s")
+    return out
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2567,11 +2846,13 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     results = {"card": card}
 
-    # 2. build
+    # 2. build; the C++ runner (phase 21) builds beside the next phases
     t0 = time.perf_counter()
     _build.build_all()
     results["build_s"] = time.perf_counter() - t0
     print(f"built {_build.sources()} in {results['build_s']:.1f} s")
+    runner_pool = ThreadPoolExecutor(max_workers=1)
+    runner_build = runner_pool.submit(timed_build_runner)
     for name in _build.PTXAS_REPORT:
         regs = [u["registers"] for u in _build.ptxas_usage(name)]
         spills = sum(u["spill_bytes"] for u in _build.ptxas_usage(name))
@@ -2708,6 +2989,10 @@ def main():
     results["multi_gpu_phases_s"] = time.perf_counter() - t_mg
     print(f"phases 19-20 in {results['multi_gpu_phases_s']:.0f} s")
 
+    # 21. export: the .pt2, the AOTInductor packages and the C++ runner
+    export = phase_export(results, card, dev, inferer, ctx8, batch, runner_build)
+    runner_pool.shutdown()
+
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
@@ -2717,7 +3002,10 @@ def main():
                 "bound_by": nms32["bound_by"], "library_ms": None, "matches_plain": True,
                 "device_ms": nms32["device_ms"], "kept": nms32["kept"],
                 "ms_b1": nms1["ms"], "device_ms_b1": nms1["device_ms"], "kept_b1": nms1["kept"],
-                "device_ms_in_batch": nms["in_batch_device_ms"]},
+                "device_ms_in_batch": nms["in_batch_device_ms"],
+                "export_launches": {k: export[k]["launches_aoti"][0] for k in ("bf16", "int8")},
+                "runner_launches": {k: export[k]["runner"]["launches_per_batch"]["greedy_nms"]
+                                    for k in ("bf16", "int8")}},
                {"name": "int8_conv", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/int8_conv.cu",
                 "replaces": "yololp_tpu/ops/pallas_conv.py:58",
@@ -2725,7 +3013,10 @@ def main():
                 "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_S > tot["ops"] / INT8_OPS_S
                 else "operations",
-                "library_ms": None, "matches_plain": True},
+                "library_ms": None, "matches_plain": True,
+                "export_launches": {"int8": export["int8"]["launches_aoti"][1]},
+                "runner_launches": {"int8": export["int8"]["runner"]["launches_per_batch"]
+                                    ["int8_conv"]}},
                {"name": "mxu_matmul", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/mxu_matmul.cu",
                 "replaces": "tools/probe_mxu_int8.py:44",

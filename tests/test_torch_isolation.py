@@ -1,8 +1,8 @@
-"""The port stands alone: no module of yololp_tpu_torch/, and not
-chip_smoke.py, imports jax, flax or the JAX package (cv2, msgpack, yaml and
-PIL only inside functions), and every entry point refuses to fall back to
-the CPU when no GPU is present; the trainer refuses a mesh that is not its
-process group."""
+"""The port stands alone: no module of yololp_tpu_torch/ (export/ and
+deploy/ included), and not chip_smoke.py, imports jax, flax or the JAX
+package (cv2, msgpack, yaml and PIL only inside functions), and every entry
+point refuses to fall back to the CPU when no GPU is present; the trainer
+refuses a mesh that is not its process group."""
 
 import ast
 import subprocess
@@ -121,6 +121,24 @@ def test_the_multi_gpu_modules_and_new_tools_are_checked():
         path = f"yololp_tpu_torch/{name}" + ("/__init__.py" if "/" not in name else ".py")
         assert path in files
         assert "yololp_tpu_torch." + name.replace("/", ".") in mods
+
+
+def test_the_export_modules_are_checked_and_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
+    """export/, deploy/ (the native runner's build), ops/library.py and
+    tools/export.py are among the files and modules the two import tests
+    above walk; the export CLI takes the card unless the CPU is asked for."""
+    from yololp_tpu_torch.tools.export import main
+
+    files = {p.relative_to(ROOT).as_posix() for p in port_files()}
+    mods = set(port_modules())
+    for name in ("export/__init__", "export/export", "deploy/__init__", "deploy/aoti_cpp/__init__",
+                 "deploy/aoti_cpp/__main__", "ops/library", "tools/export"):
+        assert f"yololp_tpu_torch/{name}.py" in files
+        assert "yololp_tpu_torch." + name.replace("/", ".").removesuffix(".__init__") in mods
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--conf-file", "yololpn", "--out", str(tmp_path / "m"), "--img-size", "64"])
+    assert not list(tmp_path.iterdir())  # refused before any work
 
 
 def test_parallel_helpers_are_the_identity_outside_a_group(monkeypatch):

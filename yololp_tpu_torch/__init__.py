@@ -10,7 +10,9 @@ metric; losses/ and assigners/ hold the training loss with ATSS and TAL;
 solver/, core/train_step.py, core/engine.py and tools/train.py train
 (Nesterov SGD, EMA, gradient accumulation, QAT's straight-through
 fake-quant, the device-resident dataset cache) and write checkpoints in the
-JAX package's msgpack format.
+JAX package's msgpack format. export/ writes the end-to-end program with
+torch.export (the kernels are custom ops, ops/library.py) and an
+AOTInductor package, which deploy/aoti_cpp/'s C++ runner loads.
 
 The package imports torch, numpy and the standard library only; cv2, yaml
 and PIL are imported inside the functions that need them, and the

@@ -1,8 +1,9 @@
 """int8 convolution with a fused per-out-channel epilogue: the CUDA kernel
 csrc/int8_conv.cu and its plain PyTorch version.
 
-Counterpart of yololp_tpu/ops/pallas_conv.py. `int8_conv` runs the kernel on
-a CUDA tensor and the plain version on a CPU tensor; on a CUDA tensor it
+Counterpart of yololp_tpu/ops/pallas_conv.py. `int8_conv` calls the custom
+op `yololp_torch::int8_conv` (ops/library.py), which runs the kernel on a
+CUDA tensor and the plain version on a CPU tensor; on a CUDA tensor it
 launches the kernel or raises. `launches` counts the kernel's launches.
 
 Layouts are the kernel's: activations NHWC, weights (O, KH, KW, C), one
@@ -39,6 +40,22 @@ _WEIGHT_MAPS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _WEIGHT_MAPS_CAP = 256
 
 _MODES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2, torch.int32: 3}
+_MODE_DTYPES = list(_MODES)
+
+
+def out_mode(out_dtype: torch.dtype) -> int:
+    """The kernel's number for an output dtype (the op's `out_mode`)."""
+    if out_dtype not in _MODES:
+        raise TypeError(f"out_dtype {out_dtype} is not one of {_MODE_DTYPES}")
+    return _MODES[out_dtype]
+
+
+def mode_dtype(mode: int) -> torch.dtype:
+    """The output dtype of the kernel's mode number `mode`."""
+    if not 0 <= mode < len(_MODE_DTYPES):
+        raise TypeError(f"out_mode {mode} is not one of 0..{len(_MODE_DTYPES) - 1} "
+                        f"({_MODE_DTYPES})")
+    return _MODE_DTYPES[mode]
 
 
 def out_size(h: int, kh: int, stride: int) -> int:
@@ -175,14 +192,11 @@ def _launcher(lib: ctypes.CDLL):
 
 def int8_conv(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
               out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
-    """conv(int8, int8) -> int32 -> fused epilogue, NHWC in and out: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if x_q.device.type == "cuda":
-        return int8_conv_cuda(x_q, w_q, a, b, stride, relu, out_dtype)
-    if x_q.device.type == "cpu":
-        _check(x_q, w_q, a, b, stride, out_dtype)
-        return int8_conv_plain(x_q, w_q, a, b, stride, relu, out_dtype)
-    raise ValueError(f"no int8_conv for device {x_q.device}")
+    """conv(int8, int8) -> int32 -> fused epilogue, NHWC in and out, the op
+    `yololp_torch::int8_conv` (ops/library.py): the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    return torch.ops.yololp_torch.int8_conv(x_q, w_q, a, b, int(stride), bool(relu),
+                                            out_mode(out_dtype))
 
 
 def conv3x3_int8_fused(x_q, w9, a, b, relu: bool = True,

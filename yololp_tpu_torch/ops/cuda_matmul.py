@@ -193,23 +193,15 @@ def matmul_nt_cuda(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N), bf16 -> fp32 or int8 -> int32: the CUDA kernel on CUDA
+    """(M, K) @ (K, N), bf16 -> fp32 or int8 -> int32, the op
+    `yololp_torch::matmul` (ops/library.py): the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors."""
-    if a.device.type == "cuda":
-        return matmul_cuda(a, b)
-    if a.device.type == "cpu":
-        _check(a, b)
-        return matmul_plain(a, b)
-    raise ValueError(f"no matmul for device {a.device}")
+    return torch.ops.yololp_torch.matmul(a, b)
 
 
 def matmul_nt(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b_t (N, K).T, bf16 -> fp32 or int8 -> int32, with b_t's
-    rows possibly strided: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors."""
-    if a.device.type == "cuda":
-        return matmul_nt_cuda(a, b_t)
-    if a.device.type == "cpu":
-        _check_nt(a, b_t)
-        return matmul_nt_plain(a, b_t)
-    raise ValueError(f"no matmul_nt for device {a.device}")
+    rows possibly strided, the op `yololp_torch::matmul_nt`
+    (ops/library.py): the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    return torch.ops.yololp_torch.matmul_nt(a, b_t)

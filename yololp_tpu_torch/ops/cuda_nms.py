@@ -1,9 +1,10 @@
 """Greedy NMS keep-mask: the CUDA kernel csrc/greedy_nms.cu and its plain
 PyTorch versions.
 
-`greedy_nms_mask` runs the kernel on a CUDA tensor and the plain version on a
-CPU tensor; on a CUDA tensor it launches the kernel or raises. `launches`
-counts the kernel's launches.
+`greedy_nms_mask` calls the custom op `yololp_torch::greedy_nms_mask`
+(ops/library.py), which runs the kernel on a CUDA tensor and the plain
+version on a CPU tensor; on a CUDA tensor it launches the kernel or raises.
+`launches` counts the kernel's launches.
 
 The plain version mirrors the JAX default, the fixpoint of
 yololp_tpu/ops/nms.py:44-79: keep_i = valid_i and no kept j < i with
@@ -159,10 +160,7 @@ def greedy_nms_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
 
 def greedy_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
                     iou_thres: float) -> torch.Tensor:
-    """Exact greedy keep-mask: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if boxes.device.type == "cuda":
-        return greedy_nms_mask_cuda(boxes, scores, iou_thres)
-    if boxes.device.type == "cpu":
-        return greedy_nms_mask_plain(boxes, scores, iou_thres)
-    raise ValueError(f"no greedy_nms_mask for device {boxes.device}")
+    """Exact greedy keep-mask, the op `yololp_torch::greedy_nms_mask`
+    (ops/library.py): the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    return torch.ops.yololp_torch.greedy_nms_mask(boxes, scores, float(iou_thres))
