@@ -177,7 +177,23 @@ toolkit. Phases, each of which raises on failure:
      the runner's sync and pipelined loops by CUDA events (the runner by
      its host clock); the host cost of an op dispatch against the launcher
      called directly (and a torch.library.custom_op twin), times the
-     launches a batch.
+     launches a batch;
+  22. the diagnostics (tools.diag_strict, tools.diag_province and
+     utils/metrics): phase 12's 70 frames at 640 labelled with the bf16
+     model's own detections (every second label's characters moved, every
+     third label's box narrowed to 0.6 of its width), through
+     Evaler.predict with the NMS kernel's launches read around it (one a
+     batch: 3), detections equal to the plain CPU NMS on the card's decode;
+     diag_strict's funnel in order (gt >= matched50 >= matched70 >=
+     both_ok), slot accuracies in [0, 1], character_confusions over the
+     targets matched at IoU 0.7 counting decompose's wrong slots, and
+     diag_province's width buckets summing to gt; then diag_scan_walls at its
+     defaults (every wall finite and positive); then the encoded-image path
+     on phase 4's frames written as BMPs: where OpenCV or cv2 exists,
+     detect_batch_encoded equal to detect_batch and the host decode's ms a
+     batch, else the asserted refusal (native_available() False, and
+     detect_batch_encoded and Evaler.init_data(native=True) raise the
+     RuntimeError naming both).
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -1168,7 +1184,7 @@ def eval_on_card(ev, run_fn, decode_module, loader, kernels):
     metric_own = ev.eval(preds, own)
     if metric_own != ev.eval(cpu_preds, own) or (sum(map(len, own)) and metric_own[5][-1] == -1):
         raise AssertionError(f"eval metric on the card's own detections as gts: {metric_own}")
-    return metric, launches, preds, metric_own
+    return metric, launches, preds, metric_own, targets
 
 
 def phase_eval(results, card, dev, inferer, ctx8):
@@ -1192,7 +1208,8 @@ def phase_eval(results, card, dev, inferer, ctx8):
     for label, run_fn, module, kernels in runs:
         ev.predict(run_fn, loader[:1])  # warm-up
         ev.speed_result = np.zeros(4)
-        metric, launches, preds, metric_own = eval_on_card(ev, run_fn, module, loader, kernels)
+        metric, launches, preds, metric_own, _ = eval_on_card(ev, run_fn, module, loader,
+                                                              kernels)
         if any(n < 1 for n in launches.values()):
             raise AssertionError(f"eval ({label}) launched {launches}")
         if len(preds) != EVAL_FRAMES or sum(map(len, preds)) == 0:
@@ -1652,7 +1669,7 @@ def phase_training(results, card, dev, train_model, cfg, amax, eval_frames):
         load_state_dict_strict(deploy, reloaded)
         deploy = deploy.to(dev, torch.bfloat16).to(memory_format=torch.channels_last).eval()
         ev2 = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=0.0, device=dev)
-        metric, launches, preds, _ = eval_on_card(
+        metric, launches, preds, _, _ = eval_on_card(
             ev2, ev2.make_infer_fn(deploy), deploy,
             loader_batches(ev_imgs, ev_labels, ev_masks, BATCH), (cuda_nms,))
         print(f"final_ckpt.msgpack reloaded through load_inference_variables == the trained EMA "
@@ -2824,6 +2841,230 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build):
     return out
 
 
+def spoiled_self_labels(preds, size, max_boxes):
+    """self_labels of each frame's detections of positive size (random
+    weights decode most boxes inverted) with every second label's
+    characters moved (province + 3, ad2 + 1) and every third label's box
+    narrowed to 0.6 of its width (IoU 0.6 with its detection: matched at
+    0.5, not at 0.7), so that each stage of diag_strict's funnel has
+    something to count; and every fourth label of the whole set widened to
+    100 px (the detections of random weights are narrower than 40 px), so
+    that diag_province's width buckets hold more than one."""
+    preds = [d[(d[:, 2] - d[:, 0] > 1) & (d[:, 3] - d[:, 1] > 1)] for d in preds]
+    labels, masks = self_labels(preds, size, max_boxes)
+    n = 0
+    for i in range(len(labels)):
+        for j in range(int(masks[i].sum())):
+            n += 1
+            if n % 4 == 0:
+                labels[i, j, 10] = 100 / size
+                labels[i, j, 8] = np.clip(labels[i, j, 8], 50 / size, 1 - 50 / size)
+            if j % 2 == 1:
+                labels[i, j, 0] = (labels[i, j, 0] + 3) % 31
+                labels[i, j, 4] = (labels[i, j, 4] + 1) % 37
+            if j % 3 == 1:
+                x1 = labels[i, j, 8] - labels[i, j, 10] / 2
+                labels[i, j, 10] *= 0.6
+                labels[i, j, 8] = x1 + labels[i, j, 10] / 2
+    return labels, masks
+
+
+def matched70(preds, targets):
+    """Each image's targets whose best-IoU detection has IoU >= 0.7 (the
+    headline gate of diag_strict.decompose)."""
+    from yololp_tpu_torch.core.evaler import Evaler
+
+    out = []
+    for pred, tgt in zip(preds, targets):
+        if len(pred) and len(tgt):
+            tgt = tgt[Evaler._box_iou(pred[:, :4], tgt[:, 8:12]).max(0) >= 0.7]
+        out.append(tgt)
+    return out
+
+
+def bmp_bytes(bgr: np.ndarray) -> bytes:
+    """An uncompressed 24-bit BMP of a BGR uint8 image, written with numpy: a
+    54-byte header, then bottom-up BGR rows padded to 4 bytes."""
+    h, w = bgr.shape[:2]
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = bgr[::-1].reshape(h, 3 * w)
+    header = (b"BM" + np.array([54 + rows.size, 0, 54], "<u4").tobytes()
+              + np.array([40, w, h], "<i4").tobytes() + np.array([1, 24], "<u2").tobytes()
+              + np.array([0, rows.size, 2835, 2835, 0, 0], "<u4").tobytes())
+    return header + rows.tobytes()
+
+
+def bmp_decode(buf: bytes) -> np.ndarray:
+    """The BGR uint8 image of a BMP as bmp_bytes writes it, read with numpy."""
+    w, h = (int(v) for v in np.frombuffer(buf, "<i4", 2, 18))
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.frombuffer(buf, np.uint8, h * stride, 54).reshape(h, stride)
+    return np.ascontiguousarray(rows[::-1, :3 * w].reshape(h, w, 3))
+
+
+def spied(inferer, call):
+    """call() with the inferer's _run and predict watched: returns its
+    result, the uint8 batch _run was given and (det, valid, num, decode)."""
+    seen, saved = {}, dict(vars(inferer))
+    run, predict = inferer._run, inferer.predict
+
+    def spy_predict(images_u8):
+        seen["pred"] = predict(images_u8)
+        return seen["pred"]
+
+    def spy_run(images_u8):
+        seen["batch"] = np.array(images_u8)
+        seen["out"] = run(images_u8)
+        return seen["out"]
+
+    inferer._run, inferer.predict = spy_run, spy_predict
+    try:
+        result = call()
+    finally:
+        vars(inferer).clear()
+        vars(inferer).update(saved)
+    return result, seen["batch"], (*seen["out"], seen["pred"])
+
+
+def phase_encoded(results, card, dev, inferer, imgs):
+    """22c. The encoded-image path on phase 4's frames written as BMPs: where
+    OpenCV or cv2 exists, detect_batch_encoded's letterboxed batch against
+    the host letterbox of numpy's own decode of the BMPs, its detections
+    against the plain CPU NMS on its decode and against detect_batch on
+    numpy's decode (branch 'library' or 'cv2'); where neither exists, the
+    asserted refusal (branch 'refused')."""
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.data import native
+
+    bufs = [bmp_bytes(im) for im in imgs]
+    t0 = time.perf_counter()
+    branch = "library" if native.native_available() else None  # builds where OpenCV is
+    build_s = time.perf_counter() - t0
+    if branch is None:
+        try:
+            branch = f"cv2 {native.require_cv2().__version__}"
+        except RuntimeError:
+            branch = "refused"
+    if branch == "refused":
+        refused = []
+        for what, call in (
+                ("Inferer.detect_batch_encoded", lambda: inferer.detect_batch_encoded(bufs[:1])),
+                ("Evaler.init_data(native=True)",
+                 lambda: Evaler({"val": "frames"}, device=dev).init_data("val", native=True))):
+            try:
+                call()
+            except RuntimeError as e:
+                if "neither the native batch decoder" not in str(e):
+                    raise
+                refused.append(what)
+            else:
+                raise AssertionError(f"{what} ran without OpenCV or cv2")
+        print(f"encoded path: branch 'refused' (neither OpenCV's headers and libraries nor cv2 "
+              f"on this machine): native_available() False; {' and '.join(refused)} raise the "
+              "RuntimeError naming both")
+        results["encoded"] = {"branch": branch, "refused": refused}
+        return
+    native.decode_letterbox_batch(bufs, IMG)  # warm-up
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        native.decode_letterbox_batch(bufs, IMG)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / reps
+    decoded = [bmp_decode(b) for b in bufs]
+    if not all(np.array_equal(d, im) for d, im in zip(decoded, imgs)):
+        raise AssertionError("numpy's decode of the BMPs != the frames written")
+    got, batch_enc, out_enc = spied(inferer, lambda: inferer.detect_batch_encoded(bufs))
+    want, batch_np, _ = spied(inferer, lambda: inferer.detect_batch(decoded))
+    if not np.array_equal(batch_enc, batch_np):
+        raise AssertionError(f"branch {branch!r}: the decoder's letterboxed batch != the host "
+                             "letterbox of numpy's decode")
+    nms_on_own_decode(out_enc, dict(conf_thres=inferer.conf_thres, iou_thres=inferer.iou_thres,
+                                    max_det=inferer.max_det), "detect_batch_encoded")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"frame {i}: detect_batch_encoded != detect_batch")
+    print(f"encoded path: branch {branch!r} (build {build_s:.1f} s): on {len(bufs)} BMP "
+          "frames the decoder's letterboxed batch == the host letterbox of numpy's decode, "
+          "detect_batch_encoded's detections == the plain CPU NMS on its decode == "
+          f"detect_batch on numpy's decode, {sum(map(len, got))} detections; [{card}] host "
+          "decode + letterbox "
+          f"{decode_ms:.3f} ms per batch of {len(bufs)}")
+    results["encoded"] = {"branch": branch, "build_s": build_s, "decode_ms": decode_ms}
+
+
+def phase_diag(results, card, dev, inferer, imgs):
+    """22. The diagnostics at full width (diag_strict, diag_province and
+    utils/metrics on Evaler.predict of the bf16 yololps at 640 over phase
+    12's 70 frames, labelled with the float model's own detections), the
+    scan-wall diagnostic at its defaults, and the encoded-image path."""
+    from yololp_tpu_torch.core.evaler import Evaler
+    from yololp_tpu_torch.ops import cuda_nms
+    from yololp_tpu_torch.tools import diag_province, diag_scan_walls, diag_strict
+    from yololp_tpu_torch.utils.metrics import character_confusions
+
+    t_phase = time.perf_counter()
+    frames22, _, _ = labelled_frames(np.random.default_rng(SEED + 12), EVAL_FRAMES, IMG)
+    ev = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=inferer.conf_thres, device=dev)
+    run_fn = ev.make_infer_fn(inferer.model)
+    masks0 = np.zeros((EVAL_FRAMES, 32), np.float32)
+    own, _ = ev.predict(run_fn, loader_batches(frames22, np.zeros((EVAL_FRAMES, 32, 20),
+                                                                  np.float32), masks0, BATCH))
+    labels, masks = spoiled_self_labels(own, IMG, 32)
+    loader = loader_batches(frames22, labels, masks, BATCH)
+    ev.speed_result = np.zeros(4)
+    t0 = time.perf_counter()
+    metric, launches, preds, _, targets = eval_on_card(ev, run_fn, inferer.model, loader,
+                                                      (cuda_nms,))
+    check_s = time.perf_counter() - t0
+    speed = ev.eval_speed()
+    n_batches = -(-EVAL_FRAMES // BATCH)
+    if launches != {"cuda_nms": n_batches}:
+        raise AssertionError(f"diagnostics: greedy_nms launched {launches}, want {n_batches}")
+    t0 = time.perf_counter()
+    (stats, slot_total, slot_right, n_wrong), mats = diag_strict.report(metric, preds, targets)
+    prov = diag_province.analyse(preds, targets)
+    diag_s = time.perf_counter() - t0
+    if not (stats["gt"] > 0 and stats["gt"] >= stats["matched50"] >= stats["matched70"]
+            >= stats["both_ok"]):
+        raise AssertionError(f"diag_strict funnel {stats}")
+    acc = slot_right / np.maximum(slot_total, 1)
+    if not ((acc >= 0) & (acc <= 1)).all() or int(n_wrong.sum()) != stats["matched70"]:
+        raise AssertionError(f"per-slot accuracy {acc}, wrong-slot histogram {n_wrong}")
+    wrong = int((slot_total - slot_right).sum())
+    mats70 = character_confusions(preds, matched70(preds, targets))
+    off_diag = sum(int(m.sum() - m.trace()) for m in mats70)
+    if off_diag != wrong or wrong == 0:
+        raise AssertionError(f"character_confusions on matched70 count {off_diag} wrong "
+                             f"slots, decompose {wrong}")
+    widths = np.concatenate([t[:, 10] - t[:, 8] for t in targets])
+    edges = diag_province.WIDTH_EDGES
+    per_bucket = [(lo, hi, int(((widths >= lo) & (widths < hi)).sum()))
+                  for lo, hi in zip(edges[:-1], edges[1:])]
+    if ([b[:3] for b in prov["buckets"]] != [b for b in per_bucket if b[2]]
+            or len(prov["buckets"]) < 2 or not prov["gt"] == stats["gt"] == len(widths)):
+        raise AssertionError(f"diag_province buckets {prov['buckets']} against the targets' "
+                             f"widths {per_bucket} (want two or more) and gt {stats['gt']}")
+    print(f"[{card}] diagnostics, yololps {IMG}px bf16, {EVAL_FRAMES} frames (self-labelled, "
+          f"spoiled): greedy_nms launches {launches['cuda_nms']}, dets == plain CPU NMS; funnel "
+          f"gt {stats['gt']} matched50 {stats['matched50']} matched70 {stats['matched70']} "
+          f"corner_ok {stats['corner_ok']} cls_ok {stats['cls_ok']} both_ok {stats['both_ok']}; "
+          f"wrong slots {wrong} == character_confusions' {off_diag}; province buckets "
+          f"{[b[:3] for b in prov['buckets']]} == the targets' widths; Evaler.predict ms per image "
+          f"{json.dumps(speed)}; predict + the plain CPU NMS check {check_s:.3f} s; "
+          f"decompose + report + province {diag_s:.3f} s")
+    walls = diag_scan_walls.main(["--device", str(dev)])
+    bad = {k: v for k, v in walls.items() if k.endswith("_s") and not (np.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"diag_scan_walls: walls not finite and positive {bad}")
+    phase_encoded(results, card, dev, inferer, imgs)
+    results["diag"] = dict(stats=stats, slot_accuracy=acc.tolist(), launches=launches,
+                           province_buckets=prov["buckets"], wrong_slots=wrong,
+                           speed=speed, check_s=check_s, diag_s=diag_s, scan_walls=walls,
+                           phase_s=time.perf_counter() - t_phase)
+    print(f"phase 22 in {results['diag']['phase_s']:.0f} s")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -2992,6 +3233,9 @@ def main():
     # 21. export: the .pt2, the AOTInductor packages and the C++ runner
     export = phase_export(results, card, dev, inferer, ctx8, batch, runner_build)
     runner_pool.shutdown()
+
+    # 22. the diagnostics at full width, the scan walls and the encoded-image path
+    phase_diag(results, card, dev, inferer, imgs)
 
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",

@@ -49,6 +49,33 @@ def test_every_config_file_is_copied():
         assert got == want, name
 
 
+def _plain(x):
+    """No DotDict anywhere inside x."""
+    if isinstance(x, dict):
+        return type(x) is dict and all(_plain(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(_plain(v) for v in x)
+    return True
+
+
+def test_to_dict_equals_jax():
+    """DotDict.to_dict on every config and on DotDicts inside lists and
+    tuples: the JAX package's plain dicts."""
+    from yololp_tpu.utils.config import DotDict as JDotDict
+    from yololp_tpu_torch.utils.config import DotDict
+
+    nested = {"a": [{"b": 1}, 2], "t": ({"c": {"d": [3]}},), "e": None}
+    cases = [(DotDict(nested), JDotDict(nested))]
+    cases += [(Config.named(n), JConfig.named(n)) for n in JAX_CONFIGS]
+    for port, jax_cfg in cases:
+        got, want = port.to_dict(), jax_cfg.to_dict()
+        got.pop("_filename", None)  # each package's own config file
+        want.pop("_filename", None)
+        assert got == want and _plain(got)
+    assert DotDict(nested).to_dict() == nested
+    assert type(DotDict(nested).to_dict()["t"]) is tuple
+
+
 @functools.lru_cache(maxsize=None)
 def _flax_shapes(arch):
     """The flax train-graph tree's leaf shapes, one trace per architecture

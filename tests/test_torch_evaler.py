@@ -212,8 +212,12 @@ def test_run_eval_and_refusals(synthetic, models):
     # a mesh splits each batch over its replicas: the batch must divide
     with pytest.raises(ValueError, match="not divisible by mesh size 2"):
         Evaler(data, batch_size=3, device="cpu").make_infer_fn(tmodel, mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ev.init_data("val", native=True)
+    # native=True takes the native batch decoder (data/native.py), which
+    # tests/test_torch_native.py holds against JAX's
+    from yololp_tpu_torch.data.datasets import NativeValLoader
+
+    loader, dataset = ev.init_data("val", native=True)
+    assert isinstance(loader, NativeValLoader) and len(dataset) == 6
     with pytest.raises(NotImplementedError, match="topk"):
         Evaler(data, nms_selector="approx", device="cpu")
 
@@ -235,8 +239,10 @@ def test_cli_runs_end_to_end_on_cpu(synthetic, tmp_path, capsys):
     # --mesh 2 splits each batch over two replicas (here both on the CPU)
     meshed, _ = main(args + ["--mesh", "2"])
     assert meshed == results
-    for flag in (["--native-preproc"], ["--nms-selector", "approx"]):
-        with pytest.raises(SystemExit):
-            main(args + flag)
-    err = capsys.readouterr().err
-    assert "A.15" in err and "approx" in err
+    # the synthetic frames are IMG square: the native decoder's letterbox is
+    # the identity on them, as the per-image loader's is
+    native, _ = main(args + ["--native-preproc"])
+    assert native == results
+    with pytest.raises(SystemExit):
+        main(args + ["--nms-selector", "approx"])
+    assert "approx" in capsys.readouterr().err

@@ -57,6 +57,16 @@ def test_anchor_points_match_jax(img):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
+@pytest.mark.parametrize("img", [(64, 64), (96, 160), (640, 640)])
+@pytest.mark.parametrize("strides", [(8, 16, 32), (8, 16, 32, 64)])
+def test_anchor_points_eval_matches_jax(img, strides):
+    jp, js = janchors.anchor_points_eval(img, strides)
+    tp, ts = tanchors.anchor_points_eval(img, strides)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert tp.shape == (sum((img[0] // s) * (img[1] // s) for s in strides), 2)
+
+
 def test_pairwise_iou_matches_jax_with_degenerate_boxes():
     """Includes boxes with x2 < x1 or y2 < y1: the areas are clipped at 0 on
     both sides, so their IoU is 0 rather than a negative-area artefact."""

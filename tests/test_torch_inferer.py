@@ -90,8 +90,11 @@ def _labels(path):
 
 
 @pytest.mark.parametrize("batched", [False, True])
-def test_infer_label_files_match_jax(inferers, images, tmp_path, batched):
+def test_infer_label_files_match_jax(inferers, images, tmp_path, batched, monkeypatch):
     import cv2
+
+    from yololp_tpu.data import native as jnative
+    from yololp_tpu_torch.data import native
 
     jinf, inf = inferers
     src = tmp_path / "src"
@@ -99,12 +102,17 @@ def test_infer_label_files_match_jax(inferers, images, tmp_path, batched):
     for i, im in enumerate(images):
         cv2.imwrite(str(src / f"im{i}.png"), im)
     jinf.source = inf.source = str(src)
-    # the JAX batched path feeds still images through its native encoded-bytes
-    # letterbox, which the port defers; both port paths are held to JAX infer
-    jinf.infer(str(tmp_path / "j"), save_img=False)
     if batched:
+        # both batched paths feed still images as encoded bytes to the native
+        # batch decoder (its source shape is recovered from the rounded
+        # ratio and pads, which the decoded path does not round): the JAX one
+        # on the library the port builds (tests/test_torch_native.py)
+        monkeypatch.setattr(jnative, "_LIB_PATH", str(native.build()))
+        monkeypatch.setattr(jnative, "_lib", None)
+        jinf.infer_batched(str(tmp_path / "j"), batch_size=4)
         results = inf.infer_batched(str(tmp_path / "t"), batch_size=4)
     else:
+        jinf.infer(str(tmp_path / "j"), save_img=False)
         results = inf.infer(str(tmp_path / "t"))
     assert len(results) == len(images)
     for i in range(len(images)):

@@ -16,8 +16,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "yololp_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "yololp_tpu"}
-# cv2, msgpack and yaml are absent on the machine with the card (PIL may be):
-# imported lazily only
+# msgpack and yaml are absent on the machine with the card (cv2 and PIL may
+# be there, OpenCV's headers are not): all four imported lazily only
 LAZY = {"cv2", "msgpack", "yaml", "PIL"}
 
 
@@ -284,3 +284,39 @@ def test_trainer_refuses_what_waits_for_later_items(tmp_path):
     make_train_step(model, LossConfig(), SolverConfig(), 2, teacher=torch.nn.Conv2d(3, 3, 1))
     with pytest.raises(KeyError, match="no parameter"):
         make_train_step(model, LossConfig(), SolverConfig(), 2, grad_masks={"nope": None})
+
+
+def test_the_host_side_modules_are_checked():
+    """The encoded-image path, the metrics, transplant and the diagnostic
+    and dataset tools are among the files and modules the two import tests
+    above walk (none imports jax, cv2, yaml or msgpack at module level)."""
+    files = {p.relative_to(ROOT).as_posix() for p in port_files()}
+    mods = set(port_modules())
+    for name in ("data/native", "utils/metrics", "utils/transplant", "tools/diag_strict",
+                 "tools/diag_province", "tools/diag_scan_walls", "tools/transplant",
+                 "tools/make_dataset", "tools/generate_plates", "tools/trans_ccpd",
+                 "tools/count_ccpd", "tools/voc2yolo", "tools/vis_dataset", "tools/vis_glyphs"):
+        assert f"yololp_tpu_torch/{name}.py" in files
+        assert "yololp_tpu_torch." + name.replace("/", ".") in mods
+
+
+@pytest.mark.parametrize("tool", ["diag_strict", "diag_province", "diag_scan_walls",
+                                  "transplant"])
+def test_diag_and_transplant_tools_raise_without_a_gpu(tool, monkeypatch, tmp_path):
+    """The diagnostics and transplant's --data comparison take the card
+    unless --device cpu is given; they refuse before reading any file."""
+    import importlib
+
+    main = importlib.import_module(f"yololp_tpu_torch.tools.{tool}").main
+    missing = str(tmp_path / "missing")
+    argv = {"diag_strict": ["--ckpt", missing, "--data", missing],
+            "diag_province": ["--ckpt", missing, "--data", missing],
+            "diag_scan_walls": ["--small"],
+            "transplant": ["--weights", missing, "--conf-file", "yololpn", "--data", missing,
+                           "--reference-dir", str(tmp_path)]}[tool]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)  # --device defaults to cuda
+    if tool != "diag_scan_walls":  # past the device check: the files are read
+        with pytest.raises(FileNotFoundError):
+            main(argv + ["--device", "cpu"])

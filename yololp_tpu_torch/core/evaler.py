@@ -56,9 +56,17 @@ class Evaler:
         self._put, self._devices = None, [self.device]  # a mesh's (make_infer_fn)
 
     def init_data(self, task: str = "val", rect: bool = False, native: bool = False):
-        if native:
-            raise NotImplementedError("the native batch decoder waits for ROADMAP A.15")
         path = self.data[task if task in self.data else "val"]
+        if native and not rect and not self.eval_hyp:
+            # the native batch decoder (data/native.py); plain square-letterbox
+            # protocol only
+            from yololp_tpu_torch.data.datasets import NativeValLoader, TrainValDataset
+            from yololp_tpu_torch.data.native import native_available, require_cv2
+
+            if not native_available():
+                require_cv2()  # raises where neither OpenCV nor cv2 exists
+            dataset = TrainValDataset(path, img_size=self.img_size, augment=False, task="val")
+            return NativeValLoader(dataset, self.batch_size, self.img_size), dataset
         if rect:
             # aspect-sorted rect batches, pad 0.5, shapes quantized to 64 px
             from yololp_tpu_torch.data.datasets import RectValLoader, TrainValDataset

@@ -133,6 +133,33 @@ class Inferer:
             shapes.append(bgr.shape[:2])
         return self._run_batch(batch, shapes)
 
+    def detect_batch_encoded(self, buffers: list) -> list:
+        """Batched path from encoded images (jpeg/png/bmp bytes): the native
+        batch decoder (data/native.py) decodes and letterboxes the whole batch
+        in one call, then one device call and a rescale per image. An
+        undecodable buffer keeps its slot. Raises where neither OpenCV nor
+        cv2 exists (data/native.py)."""
+        from yololp_tpu_torch.data.native import decode_letterbox_batch, require_cv2
+
+        if self.img_size[0] != self.img_size[1]:
+            # the native letterbox is square only: decode here and letterbox on
+            # the host, keeping each buffer's slot (an undecodable one gets no
+            # detections) so that results stay aligned with their files
+            cv2 = require_cv2()
+            imgs = [cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR) for b in buffers]
+            good = [i for i, im in enumerate(imgs) if im is not None]
+            dets = self.detect_batch([imgs[i] for i in good]) if good else []
+            out = [np.zeros((0, 28), np.float32)] * len(buffers)
+            for i, d in zip(good, dets):
+                out[i] = d
+            return out
+        size = self.img_size[0]
+        batch, ratios, pads_w, pads_h = decode_letterbox_batch(buffers, size, scaleup=True)
+        shapes = [(int(round((size - 2 * pads_h[i]) / ratios[i])),
+                   int(round((size - 2 * pads_w[i]) / ratios[i])))
+                  for i in range(len(buffers))]
+        return self._run_batch(batch, shapes)
+
     def _run_batch(self, batch: np.ndarray, shapes: list) -> list:
         n = len(batch)
         t0 = time.perf_counter()
@@ -218,29 +245,39 @@ class Inferer:
 
     def infer_batched(self, save_dir: str, batch_size: int = 16, save_txt: bool = True,
                       save_img: bool = False):
-        """Stream the source in fixed-size batches of decoded frames (the tail
-        batch is padded by repeating its last frame)."""
-        import cv2
-
+        """Stream the source in fixed-size batches (the tail batch is padded by
+        repeating its last item). Still images go as encoded bytes to the
+        native batch decoder (detect_batch_encoded), video frames decoded
+        (detect_batch); a batch never mixes the two."""
         save_dir = Path(save_dir)
         (save_dir / "labels").mkdir(parents=True, exist_ok=True)
         results = []
         pending, pending_paths = [], []
+        pending_encoded = None
 
         def flush():
             n_real = len(pending)
             batch = pending + [pending[-1]] * (batch_size - n_real)
-            for path, img, d in zip(pending_paths, pending, self.detect_batch(batch)[:n_real]):
+            detect = self.detect_batch_encoded if pending_encoded else self.detect_batch
+            for path, item, d in zip(pending_paths, pending, detect(batch)[:n_real]):
                 results.append((path, d))
                 if save_txt:
                     self._write_labels(save_dir, path, d)
                 if save_img:
-                    cv2.imwrite(str(save_dir / Path(path).name), self.draw(img, d))
+                    import cv2
+
+                    bgr = (cv2.imdecode(np.frombuffer(item, np.uint8), cv2.IMREAD_COLOR)
+                           if pending_encoded else item)
+                    cv2.imwrite(str(save_dir / Path(path).name), self.draw(bgr, d))
             pending.clear()
             pending_paths.clear()
 
-        for img, path, _ in LoadData(self.source):
-            pending.append(img)
+        for item, path, kind in LoadData(self.source, decode_images=False):
+            is_encoded = kind == "image_bytes"
+            if pending and is_encoded != pending_encoded:
+                flush()
+            pending_encoded = is_encoded
+            pending.append(item)
             pending_paths.append(path)
             if len(pending) == batch_size:
                 flush()

@@ -284,6 +284,73 @@ class _Loader:
             yield collate_batch(batch)
 
 
+class NativeValLoader:
+    """Square-letterbox val loader on the native batch decoder
+    (data/native.py): one decode + letterbox call a batch, the labels mapped
+    by vectorized numpy from the (ratio, pad) it returns. The plain val
+    protocol only (no augment, test_load_size or letterbox_return_int)."""
+
+    def __init__(self, dataset: TrainValDataset, batch_size: int, img_size: int):
+        self.ds = dataset
+        self.bs = batch_size
+        self.img_size = img_size
+
+    def __len__(self):
+        return -(-len(self.ds) // self.bs)
+
+    def __iter__(self):
+        from yololp_tpu_torch.data.native import decode_letterbox_batch
+
+        size = self.img_size
+        n = len(self.ds)
+        for b0 in range(0, n, self.bs):
+            idxs = range(b0, min(b0 + self.bs, n))
+            paths = [self.ds.img_paths[i] for i in idxs]
+            bufs = []
+            for p in paths:
+                with open(p, "rb") as f:
+                    bufs.append(f.read())
+            # scaleup=True is the val protocol: the per-image path resizes the
+            # long side to img_size (up or down) before its letterbox
+            # (scaleup=False), so the combined ratio is the uncapped one
+            imgs, ratios, pads_w, pads_h = decode_letterbox_batch(bufs, size, scaleup=True)
+            labels, masks, shapes = [], [], []
+            for j, i in enumerate(idxs):
+                r, pw, ph = float(ratios[j]), float(pads_w[j]), float(pads_h[j])
+                w_r, h_r = size - 2 * pw, size - 2 * ph  # content extent
+                lbl = self.ds.labels[i]
+                out = np.zeros((self.ds.max_boxes, 20), np.float32)
+                out[:, :8] = -1
+                mask = np.zeros((self.ds.max_boxes,), np.float32)
+                m = min(len(lbl), self.ds.max_boxes)
+                if m:
+                    l = lbl[:m]
+                    px = np.empty((m, 20), np.float32)
+                    px[:, :8] = l[:, :8]
+                    px[:, 8] = w_r * (l[:, 8] - l[:, 10] / 2) + pw
+                    px[:, 9] = h_r * (l[:, 9] - l[:, 11] / 2) + ph
+                    px[:, 10] = w_r * (l[:, 8] + l[:, 10] / 2) + pw
+                    px[:, 11] = h_r * (l[:, 9] + l[:, 11] / 2) + ph
+                    px[:, 12:20:2] = w_r * l[:, 12:20:2] + pw
+                    px[:, 13:20:2] = h_r * l[:, 13:20:2] + ph
+                    # back to the normalized batch format (cxcywh and corners
+                    # over img_size, as _normalize_and_pad gives them)
+                    out[:m, :8] = l[:, :8]
+                    out[:m, 8] = (px[:, 8] + px[:, 10]) / 2 / size
+                    out[:m, 9] = (px[:, 9] + px[:, 11]) / 2 / size
+                    out[:m, 10] = (px[:, 10] - px[:, 8]) / size
+                    out[:m, 11] = (px[:, 11] - px[:, 9]) / size
+                    out[:m, 12:20:2] = px[:, 12:20:2] / size
+                    out[:m, 13:20:2] = px[:, 13:20:2] / size
+                    mask[:m] = 1
+                h0 = int(round(h_r / r)) if r > 0 else size
+                w0 = int(round(w_r / r)) if r > 0 else size
+                labels.append(out)
+                masks.append(mask)
+                shapes.append(((h0, w0), ((r, r), (pw, ph))))
+            yield (imgs, np.stack(labels), np.stack(masks), paths, shapes)
+
+
 class RectValLoader:
     """Rect-batched validation (--rect): aspect-sorted batches letterboxed to
     per-batch shapes with pad-0.5 stride rounding, the shapes rounded up to

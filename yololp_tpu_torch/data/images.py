@@ -80,10 +80,13 @@ def rescale_dets(dets: np.ndarray, letterbox_shape, ori_shape) -> np.ndarray:
 
 
 class LoadData:
-    """Iterate decoded images and video frames from a file, glob, directory
-    or webcam index."""
+    """Iterate images and video frames from a file, glob, directory or webcam
+    index. With decode_images=False still images come out as their encoded
+    file bytes (for the native batch decoder, data/native.py); video frames
+    are decoded either way."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, decode_images: bool = True):
+        self._decode_images = decode_images
         if str(path).isdigit():  # webcam index
             self.img_files, self.vid_files = [], []
             self.files = [str(path)]
@@ -107,17 +110,27 @@ class LoadData:
         return len(self.files)
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, str, str]]:
-        """Yields (bgr, path, kind) with kind 'image' or 'video'."""
-        import cv2
-
+        """Yields (item, path, kind): kind 'image' (decoded BGR), 'video'
+        (a decoded BGR frame) or, with decode_images=False, 'image_bytes'
+        (the file's encoded bytes)."""
         if self.webcam is not None:
+            import cv2
+
             yield from self._frames(cv2.VideoCapture(self.webcam), f"webcam{self.webcam}")
             return
         for f in self.img_files:
-            img = cv2.imread(f)
-            if img is not None:
-                yield img, f, "image"
+            if self._decode_images:
+                import cv2
+
+                img = cv2.imread(f)
+                if img is not None:
+                    yield img, f, "image"
+            else:
+                with open(f, "rb") as fh:
+                    yield fh.read(), f, "image_bytes"
         for f in self.vid_files:
+            import cv2
+
             yield from self._frames(cv2.VideoCapture(f), f)
 
     @staticmethod

@@ -31,6 +31,13 @@ def feat_sizes(img_size, strides):
     return [(h // s, w // s) for s in strides]
 
 
+def anchor_points_eval(img_size, strides, grid_cell_offset: float = 0.5, device="cpu"):
+    """Eval-mode anchors of an (H, W) input: anchor_points_from_shapes over
+    its feat_sizes."""
+    return anchor_points_from_shapes(feat_sizes(img_size, strides), strides, grid_cell_offset,
+                                     device=device)
+
+
 def anchors_train(img_size, strides, grid_cell_size: float = 5.0,
                   grid_cell_offset: float = 0.5, device="cpu"):
     """Train-mode anchors in image pixels, built on `device`: (anchors (A, 4)

@@ -22,9 +22,8 @@ import json
 import os
 import os.path as osp
 
-# flags of the JAX CLI that the port refuses, with the ROADMAP item that brings them
-NOT_PORTED = {"native_preproc": "--native-preproc waits for ROADMAP A.15",
-              "approx": "--nms-selector approx: there is no Hopper counterpart of "
+# flags of the JAX CLI that the port refuses, and why
+NOT_PORTED = {"approx": "--nms-selector approx: there is no Hopper counterpart of "
                         "lax.approx_max_k (ROADMAP A.5); use topk"}
 
 
@@ -51,7 +50,8 @@ def get_args_parser():
                    help="split each batch over this many cards (0 or 1: one device)")
     p.add_argument("--nms-selector", default="topk", choices=["topk", "approx"])
     p.add_argument("--native-preproc", action="store_true",
-                   help="refused: " + NOT_PORTED["native_preproc"])
+                   help="decode and letterbox each batch with the native batch decoder "
+                        "(data/native.py; needs OpenCV or cv2); square val protocol only")
     p.add_argument("--synthetic-data", type=str, default=None,
                    help="path to a make_synthetic_dataset root (smoke/demo)")
     p.add_argument("--int8", action="store_true",
@@ -135,10 +135,8 @@ def print_report(results, speed):
 def main(args=None):
     parser = get_args_parser()
     args = parser.parse_args(args)
-    for flag, on in (("native_preproc", args.native_preproc),
-                     ("approx", args.nms_selector == "approx")):
-        if on:
-            parser.error(NOT_PORTED[flag])
+    if args.nms_selector == "approx":
+        parser.error(NOT_PORTED["approx"])
     if args.int8 and not args.calib_pt:
         parser.error("--int8 requires --calib-pt")
     args = apply_eval_params(args)
@@ -197,7 +195,8 @@ def main(args=None):
             half=args.half, workers=args.workers, eval_hyp=eval_hyp,
             task="val" if args.task == "speed" else args.task,
             return_preds=args.save_json, run_fn=run_fn, rect=args.rect,
-            mesh=mesh, nms_selector=args.nms_selector, device=args.device)
+            native=args.native_preproc, mesh=mesh, nms_selector=args.nms_selector,
+            device=args.device)
     if args.save_json:
         results, speed, (preds, targets, paths) = out
         from yololp_tpu_torch.utils.coco import cocoeval_if_available

@@ -38,6 +38,17 @@ class DotDict(dict):
     def __setattr__(self, k, v):
         self[k] = self._wrap(v)
 
+    def to_dict(self) -> Dict:
+        """Plain nested dicts (DotDicts inside lists and tuples too)."""
+        out = {}
+        for k, v in self.items():
+            if isinstance(v, DotDict):
+                v = v.to_dict()
+            elif isinstance(v, (list, tuple)):
+                v = type(v)(x.to_dict() if isinstance(x, DotDict) else x for x in v)
+            out[k] = v
+        return out
+
 
 class Config(DotDict):
     """A loaded model config; carries its source filename for bookkeeping."""
