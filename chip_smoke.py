@@ -193,7 +193,18 @@ toolkit. Phases, each of which raises on failure:
      detect_batch_encoded equal to detect_batch and the host decode's ms a
      batch, else the asserted refusal (native_available() False, and
      detect_batch_encoded and Evaler.init_data(native=True) raise the
-     RuntimeError naming both).
+     RuntimeError naming both);
+  23. the spatial mesh (parallel/spatial.py): yololps at full width and
+     depth, the seeded fused deploy model, height-sharded over (data,
+     spatial) meshes (1, 2), (1, 4) and (2, 2) (one card: every entry
+     cuda:0; several: the entries wrap round the cards). In fp32 at batch 8:
+     the gathered decode against the unsharded `_run` decode (phase 4's fp32
+     tolerance), the detections equal to the plain CPU NMS on that decode,
+     and n_data greedy_nms launches a batch; in bf16, ms a batch of 32
+     beside the unsharded `_run`; then one 2560x2560 frame on (1, 4) against
+     the unsharded forward of the same frame (fp32 parity, bf16 times, peak
+     memory); halo rows and bytes a forward, and the host's enqueue time of
+     a batch beside the unsharded one's.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -3064,6 +3075,210 @@ def phase_diag(results, card, dev, inferer, imgs):
                            phase_s=time.perf_counter() - t_phase)
     print(f"phase 22 in {results['diag']['phase_s']:.0f} s")
 
+# ---------------- phase 23: the spatial mesh ----------------
+
+SPATIAL_MESHES = ((1, 2), (1, 4), (2, 2))
+SPATIAL_PARITY_BATCH = 8
+SPATIAL_BIG, SPATIAL_BIG_MESH = 2560, (1, 4)
+
+
+def spatial_run(model, mesh, dtype, kw):
+    """make_spatial_infer_fn's (run, put), and the decodes its NMS was given
+    (ops/nms.py:non_max_suppression wrapped where spatial.py calls it)."""
+    from yololp_tpu_torch.parallel import spatial
+
+    run, put = spatial.make_spatial_infer_fn(model, mesh, dtype=dtype, pre_nms_topk=TOPK, **kw)
+    decodes = []
+    nms = spatial.non_max_suppression
+
+    def recorded(images_u8):
+        spatial.non_max_suppression = lambda pred, **k: decodes.append(pred) or nms(pred, **k)
+        try:
+            return run(images_u8)
+        finally:
+            spatial.non_max_suppression = nms
+
+    return run, put, recorded, decodes
+
+
+def spatial_parity(what, model, mesh, images_u8, want, kw):
+    """One fp32 spatial batch: its NMS launches (n_data), its decode against
+    the unsharded `want`, its detections against the plain CPU NMS on its
+    own decode. Returns (launches, errors px and score, halo, kept min and
+    max)."""
+    from yololp_tpu_torch.ops import cuda_nms
+
+    run, put, recorded, decodes = spatial_run(model, mesh, torch.float32, kw)
+    staged = put(images_u8)
+    sync_all()
+    cuda_nms.launches = 0
+    out = recorded(staged)
+    sync_all()
+    launches = cuda_nms.launches
+    if launches != len(mesh):
+        raise AssertionError(f"{what}: {launches} greedy_nms launches for {len(mesh)} "
+                             "data rows and one batch")
+    pred = torch.cat([d.cpu() for d in decodes])
+    if pred.shape != want.shape or not torch.isfinite(pred).all():
+        raise AssertionError(f"{what}: decode {tuple(pred.shape)}, finite "
+                             f"{bool(torch.isfinite(pred).all())}")
+    err_px = float((pred[..., :13] - want[..., :13]).abs().max())
+    err_score = float((pred[..., 13:] - want[..., 13:]).abs().max())
+    if not (torch.allclose(pred[..., :13], want[..., :13], rtol=FP32_RTOL, atol=FP32_ATOL_PX)
+            and torch.allclose(pred[..., 13:], want[..., 13:], rtol=0, atol=FP32_ATOL_SCORE)):
+        raise AssertionError(f"{what}: fp32 spatial decode vs unsharded {err_px} px, "
+                             f"{err_score} score")
+    held_to_plain_nms(what, out, decodes, kw)
+    run.close()
+    return launches, err_px, err_score, dict(run.halo), int(out[2].min()), int(out[2].max())
+
+
+def held_to_plain_nms(what, out, decodes, kw):
+    """Each data row's detections in `out` (det, valid, num) against the
+    plain CPU NMS on the decode that row's NMS was given."""
+    from yololp_tpu_torch.ops.nms import non_max_suppression
+
+    n = len(out[2]) // len(decodes)
+    for i, d in enumerate(decodes):
+        cpu = non_max_suppression(d.cpu(), pre_nms_topk=TOPK, **kw)
+        for name, a, b in zip(("det", "valid", "num"), out, cpu):
+            if not torch.equal(a[i * n:(i + 1) * n].cpu(), b):
+                raise AssertionError(f"{what}: spatial detections != plain CPU NMS on the "
+                                     f"spatial decode ({name}, data row {i})")
+
+
+def spatial_bf16(what, model, mesh, images_u8, kw):
+    """make_spatial_infer_fn's bf16 (run, staged bands), its first batch
+    held to n_data greedy_nms launches and its detections to the plain CPU
+    NMS on its own decodes."""
+    from yololp_tpu_torch.ops import cuda_nms
+
+    run, put, recorded, decodes = spatial_run(model, mesh, torch.bfloat16, kw)
+    staged = put(images_u8)
+    sync_all()
+    cuda_nms.launches = 0
+    out = recorded(staged)
+    sync_all()
+    if cuda_nms.launches != len(mesh):
+        raise AssertionError(f"{what}: {cuda_nms.launches} greedy_nms launches for "
+                             f"{len(mesh)} data rows and one batch")
+    held_to_plain_nms(what, out, decodes, kw)
+    return run, staged
+
+
+def host_enqueue_ms(fn, n: int = 5) -> float:
+    """Median host ms of `fn` with no synchronisation inside (a card
+    synchronisation between calls): what the host takes to enqueue it."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def peak_gib(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_spatial(results, card, dev, weights, cfg, inferer, batch):
+    """23. Height-sharded inference over (data, spatial) meshes (see the
+    module docstring)."""
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.parallel import data_spatial_mesh
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    where = ("every entry on cuda:0 (one card)" if n_cards == 1
+             else f"entries wrapped round {n_cards} cards")
+    kw = dict(conf_thres=inferer.conf_thres, iou_thres=inferer.iou_thres,
+              max_det=inferer.max_det)
+    inf32 = Inferer(".", weights, cfg, img_size=IMG, half=False, device=dev)
+    small = batch[:SPATIAL_PARITY_BATCH]
+    on_card = torch.as_tensor(batch).to(dev)  # both sides are timed from the card's memory
+    want = inf32.predict(small).cpu()
+    out = {"meshes": {}, "placement": where}
+    launches = 0
+    for shape in SPATIAL_MESHES:
+        mesh = data_spatial_mesh(*shape, share=True)
+        what = f"spatial {shape} fp32"
+        n, err_px, err_score, halo, kept_lo, kept_hi = spatial_parity(
+            what, inf32.model, mesh, small, want, kw)
+        launches += n
+        run, staged = spatial_bf16(f"spatial {shape} bf16", inferer.model, mesh, batch, kw)
+        for _ in range(3):
+            run(staged)
+        ms = float(np.median(cuda_ms(lambda: run(staged), 2)))
+        ms_plain = float(np.median(cuda_ms(lambda: inferer._run(on_card), 2)))
+        host = host_enqueue_ms(lambda: run(staged))
+        host_plain = host_enqueue_ms(lambda: inferer._run(on_card))
+        run.close()
+        out["meshes"][str(shape)] = dict(
+            mesh=[[str(d) for d in row] for row in mesh], fp32_err_px=err_px,
+            fp32_err_score=err_score, launches_per_batch=n, kept=[kept_lo, kept_hi],
+            halo_fp32=halo, halo_bf16=dict(run.halo), bf16_ms=ms,
+            bf16_unsharded_ms=ms_plain, host_enqueue_ms=host,
+            host_enqueue_unsharded_ms=host_plain)
+        print(f"[{card}] phase 23 spatial {shape} ({where}), yololps {IMG}px: fp32 batch "
+              f"{SPATIAL_PARITY_BATCH} decode vs the unsharded _run decode max |diff| "
+              f"{err_px:.4g} px, {err_score:.4g} score (tolerance rtol {FP32_RTOL} + "
+              f"{FP32_ATOL_PX} px, {FP32_ATOL_SCORE} score); greedy_nms launches {n} a "
+              f"batch; detections == plain CPU NMS on the spatial decode, fp32 and bf16 (kept "
+              f"{kept_lo}..{kept_hi} in fp32); halo a forward {halo['rows']} rows, {halo['bytes']} B "
+              f"(fp32, batch {SPATIAL_PARITY_BATCH}); bf16 batch {BATCH}: {ms:.3f} ms spatial, "
+              f"{ms_plain:.3f} ms unsharded _run (both from batches on the card; CUDA events on "
+              f"cuda:0, median of 5 windows of 2), halo {run.halo['rows']} rows, {run.halo['bytes']} B a forward; host "
+              f"enqueue of a batch {host:.3f} ms spatial, {host_plain:.3f} unsharded (median of "
+              f"5, no synchronisation inside)", flush=True)
+
+    # one giant frame: the case the axis exists for
+    big = np.ascontiguousarray(
+        batch[:16].reshape(4, 4, IMG, IMG, 3).transpose(0, 2, 1, 3, 4).reshape(
+            1, SPATIAL_BIG, SPATIAL_BIG, 3))
+    mesh = data_spatial_mesh(*SPATIAL_BIG_MESH, share=True)
+    want_big = inf32.predict(big).cpu()
+    what = f"spatial {SPATIAL_BIG_MESH} {SPATIAL_BIG}px fp32"
+    n, err_px, err_score, halo, kept_lo, _ = spatial_parity(what, inf32.model, mesh, big,
+                                                            want_big, kw)
+    launches += n
+    del inf32, want_big
+    torch.cuda.empty_cache()
+    run, staged = spatial_bf16(f"spatial {SPATIAL_BIG_MESH} {SPATIAL_BIG}px bf16",
+                               inferer.model, mesh, big, kw)
+    big_on_card = torch.as_tensor(big).to(dev)
+    for _ in range(3):
+        run(staged)
+        inferer._run(big_on_card)
+    ms = float(np.median(cuda_ms(lambda: run(staged), 2)))
+    ms_plain = float(np.median(cuda_ms(lambda: inferer._run(big_on_card), 2)))
+    gib = peak_gib(lambda: run(staged))
+    gib_plain = peak_gib(lambda: inferer._run(big_on_card))
+    host = host_enqueue_ms(lambda: run(staged))
+    host_plain = host_enqueue_ms(lambda: inferer._run(big_on_card))
+    run.close()
+    out["big"] = dict(size=SPATIAL_BIG, mesh=[[str(d) for d in row] for row in mesh],
+                      fp32_err_px=err_px, fp32_err_score=err_score, kept=kept_lo,
+                      halo_rows=halo["rows"], halo_bytes=halo["bytes"], bf16_ms=ms,
+                      bf16_unsharded_ms=ms_plain, peak_gib=gib, peak_gib_unsharded=gib_plain,
+                      host_enqueue_ms=host, host_enqueue_unsharded_ms=host_plain)
+    print(f"[{card}] phase 23 spatial {SPATIAL_BIG_MESH} ({where}), one {SPATIAL_BIG}x"
+          f"{SPATIAL_BIG} frame: fp32 decode vs the unsharded forward of the frame max |diff| "
+          f"{err_px:.4g} px, {err_score:.4g} score; detections == plain CPU NMS, fp32 and "
+          f"bf16 ({kept_lo} kept in fp32); halo {halo['rows']} rows, {halo['bytes']} B a forward; bf16 {ms:.3f} ms "
+          f"spatial, {ms_plain:.3f} ms unsharded (CUDA events); peak memory {gib:.3f} GiB "
+          f"spatial, {gib_plain:.3f} GiB unsharded; host enqueue {host:.3f} ms spatial, "
+          f"{host_plain:.3f} unsharded", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    results["spatial"] = out
+    print(f"phase 23 in {out['seconds']:.0f} s")
+    return launches
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3237,6 +3452,9 @@ def main():
     # 22. the diagnostics at full width, the scan walls and the encoded-image path
     phase_diag(results, card, dev, inferer, imgs)
 
+    # 23. the spatial mesh: height-sharded inference with halo exchange
+    spatial_launches = phase_spatial(results, card, dev, weights, cfg, inferer, batch)
+
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
@@ -3249,7 +3467,8 @@ def main():
                 "device_ms_in_batch": nms["in_batch_device_ms"],
                 "export_launches": {k: export[k]["launches_aoti"][0] for k in ("bf16", "int8")},
                 "runner_launches": {k: export[k]["runner"]["launches_per_batch"]["greedy_nms"]
-                                    for k in ("bf16", "int8")}},
+                                    for k in ("bf16", "int8")},
+                "spatial_launches": spatial_launches},
                {"name": "int8_conv", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/int8_conv.cu",
                 "replaces": "yololp_tpu/ops/pallas_conv.py:58",

@@ -78,6 +78,14 @@ class BatchNorm2d(nn.BatchNorm2d):
         return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
+def torch_pad(kernel_size: int):
+    """The ((top, bottom), (left, right)) zero padding of a conv of
+    `kernel_size`: k // 2 on every side, stride 2 included (the JAX
+    package's padding spec; nn.Conv2d takes its (k // 2, k // 2))."""
+    p = kernel_size // 2
+    return ((p, p), (p, p))
+
+
 def batch_norm(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
@@ -107,6 +115,7 @@ class ConvBNAct(nn.Module):
 
 
 SimConv = functools.partial(ConvBNAct, act="relu")
+SiluConv = functools.partial(ConvBNAct, act="silu")
 
 
 class RepVGGBlock(nn.Module):

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from yololp_tpu_torch.layers.blocks import BN_EPS
+from yololp_tpu_torch.utils.convert import jax_to_state_dict, state_dict_to_jax
 
 _REPVGG_KEYS = {"rbr_dense_conv", "rbr_dense_bn", "rbr_1x1_conv", "rbr_1x1_bn"}
 _LINEARADD_KEYS = {"conv", "scale_conv", "conv_1x1", "scale_1x1", "bn"}
@@ -129,6 +130,13 @@ def fuse_tree(node):
 def fuse_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Train-graph state dict -> the deploy graph's state dict."""
     return _flatten(fuse_tree(_nest(state_dict)))
+
+
+def fuse_variables(variables: Dict) -> Dict:
+    """The JAX package's `fuse_variables` on its own trees: train-format
+    {'params', 'batch_stats'} (numpy leaves) -> the deploy {'params'}, by
+    way of the port's state dict (utils/convert.py) and `fuse_state_dict`."""
+    return state_dict_to_jax(fuse_state_dict(jax_to_state_dict(variables)))
 
 
 def fuse_model(model):

@@ -76,14 +76,29 @@ class Detect(nn.Module):
             reg_pred.weight.zero_()
             reg_pred.bias.fill_(1.0)
 
-    def forward(self, xs):
-        cls_flat, reg_flat, cor_flat, feats = [], [], [], []
+    def pred_maps(self, xs):
+        """Per level, the stem's output and the pred maps (cls, reg+cor), NCHW
+        at the level's resolution: the head's every op that mixes rows."""
+        feats, maps = [], []
         for i, x in enumerate(xs):
             stem = getattr(self, f"stem{i}")(x)
             feats.append(stem)
-            cls_out = getattr(self, f"cls_pred{i}")(getattr(self, f"cls_conv{i}")(stem))
-            regcor = getattr(self, f"reg_pred{i}")(getattr(self, f"reg_conv{i}")(stem))
-            b = x.shape[0]
+            maps.append((getattr(self, f"cls_pred{i}")(getattr(self, f"cls_conv{i}")(stem)),
+                         getattr(self, f"reg_pred{i}")(getattr(self, f"reg_conv{i}")(stem))))
+        return feats, maps
+
+    def forward(self, xs):
+        feats, maps = self.pred_maps(xs)
+        return self.decode(maps, feats)
+
+    def decode(self, maps, feats=None):
+        """Flatten `pred_maps`'s maps H then W, level after level, and decode
+        them; in training mode, the HeadTrainOutput with `feats`. The anchors
+        come from the maps' shapes, so the maps must be whole: a band of rows
+        never decodes its own (parallel/spatial.py gathers them first)."""
+        cls_flat, reg_flat, cor_flat = [], [], []
+        for cls_out, regcor in maps:
+            b = cls_out.shape[0]
             cls_flat.append(cls_out.permute(0, 2, 3, 1).reshape(b, -1, self.ncls))
             regcor = regcor.permute(0, 2, 3, 1).reshape(b, -1, self.nreg + 8)
             reg_flat.append(regcor[..., :self.nreg])
@@ -101,7 +116,7 @@ class Detect(nn.Module):
                                    cls_scores[..., npa:].reshape(b, a, 6, self.nads),
                                    reg_distri, cor_distri)
 
-        shapes = [(x.shape[2], x.shape[3]) for x in xs]
+        shapes = [(c.shape[2], c.shape[3]) for c, _ in maps]
         anchor_points, stride_tensor = anchor_points_from_shapes(
             shapes, self.strides, self.grid_cell_offset, device=cls_scores.device)
 

@@ -21,6 +21,7 @@ import torch
 
 from yololp_tpu_torch.core.inferer import deploy_decode
 from yololp_tpu_torch.ops.nms import non_max_suppression
+from yololp_tpu_torch.parallel.mesh import data_sharding
 from yololp_tpu_torch.quant.quantize import model_device_dtype
 from yololp_tpu_torch.utils.device import resolve_device
 
@@ -40,6 +41,17 @@ def infer_mesh(n_devices: Optional[int] = None, device="cuda") -> Optional[List[
     return [torch.device("cuda", i) for i in range(n)] if n > 1 else None
 
 
+def replicate(model: torch.nn.Module, devices: Sequence[torch.device],
+              dtype: torch.dtype) -> List[torch.nn.Module]:
+    """One eval-mode copy of `model` a device of `devices`, in `dtype`,
+    channels_last on a card."""
+    replicas = []
+    for dev in devices:
+        r = copy.deepcopy(model).to(dev, dtype).eval()
+        replicas.append(r.to(memory_format=torch.channels_last) if dev.type == "cuda" else r)
+    return replicas
+
+
 def make_sharded_infer_fn(model, mesh: Sequence[torch.device], conf_thres: float = 0.03,
                           iou_thres: float = 0.65, max_det: int = 300, pre_nms_topk: int = 512,
                           dtype: Optional[torch.dtype] = None, candidate_selector: str = "topk"):
@@ -55,19 +67,8 @@ def make_sharded_infer_fn(model, mesh: Sequence[torch.device], conf_thres: float
     if not mesh:
         raise ValueError("an empty mesh")
     dtype = dtype or model_device_dtype(model)[1]
-    replicas = []
-    for dev in mesh:
-        r = copy.deepcopy(model).to(dev, dtype).eval()
-        if dev.type == "cuda":
-            r = r.to(memory_format=torch.channels_last)
-        replicas.append(r)
-    n = len(mesh)
-
-    def put(images_u8):
-        x = torch.as_tensor(images_u8)
-        if x.shape[0] % n:
-            raise ValueError(f"batch {x.shape[0]} does not split over a mesh of {n}")
-        return [c.to(dev, non_blocking=True) for c, dev in zip(x.chunk(n), mesh)]
+    replicas = replicate(model, mesh, dtype)
+    put = data_sharding(mesh).put
 
     @torch.inference_mode()
     def run(images_u8):

@@ -19,6 +19,11 @@ by torchrun (`python -m torch.distributed.run`) or spawned by
     rank its slice of the data; rank 0 alone evaluates, checkpoints and
     logs (`is_main_process`), and `barrier` holds the others meanwhile.
 
+The JAX package's 2-D (data, spatial) mesh has its counterpart here too:
+`data_spatial_mesh` is a grid of devices in one process, and the shardings
+(`image_sharding`, `data_sharding`, `replicated`) place a (B, H, W, C) batch
+on it; parallel/spatial.py runs the height-sharded forward over such a grid.
+
 Outside a process group (or in one of one rank) every function here is the
 single-process identity.
 """
@@ -27,11 +32,13 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from yololp_tpu_torch.utils.device import resolve_device
 
 
 def _active() -> bool:
@@ -103,6 +110,101 @@ def data_mesh(n_devices: Optional[int] = None) -> List[torch.device]:
                 for r in range(world_size())]
     n = torch.cuda.device_count() if n_devices is None else n_devices
     return [torch.device("cuda", i) for i in range(n)]
+
+
+def data_spatial_mesh(n_data: int, n_spatial: int, device="cuda",
+                      share: bool = False) -> List[List[torch.device]]:
+    """The (data, spatial) mesh: an `n_data` x `n_spatial` grid of devices,
+    row-major over the visible cards, as the JAX mesh reshapes
+    `jax.devices()[:n_data * n_spatial]`. The batch splits over the rows and
+    the image height over the columns (`image_sharding`). Asked for more
+    entries than there are visible cards it raises, unless `share` lets the
+    entries wrap round them (on one card every entry is then cuda:0).
+    device='cpu' (or 'meta') gives a grid of that one device."""
+    if n_data < 1 or n_spatial < 1:
+        raise ValueError(f"a ({n_data}, {n_spatial}) mesh")
+    dev = resolve_device(device)
+    n = n_data * n_spatial
+    if dev.type != "cuda":
+        flat = [dev] * n
+    else:
+        visible = torch.cuda.device_count()
+        if n > visible and not share:
+            raise RuntimeError(f"a ({n_data}, {n_spatial}) mesh needs {n} cards, found {visible} "
+                               "visible; pass share=True to put several entries on one card")
+        flat = [torch.device("cuda", i % visible) for i in range(n)]
+    return [flat[i * n_spatial:(i + 1) * n_spatial] for i in range(n_data)]
+
+
+def band_rows(height: int, n_bands: int, stride: int = 1) -> List[Tuple[int, int]]:
+    """The [start, stop) rows of `n_bands` bands of an image `height` rows
+    tall, cut on whole blocks of `stride` rows: the height // stride blocks
+    split as evenly as they go, the first bands taking one more (5 blocks
+    over 4 bands: 2, 1, 1, 1). Raises where the blocks are fewer than the
+    bands."""
+    if height % stride:
+        raise ValueError(f"a height of {height} rows is not a multiple of the stride {stride}")
+    blocks = height // stride
+    if not 1 <= n_bands <= blocks:
+        raise ValueError(f"{n_bands} bands of an image of {blocks} rows at stride {stride}: "
+                         "a band needs at least one row")
+    q, r = divmod(blocks, n_bands)
+    stops = np.cumsum([0] + [q + (j < r) for j in range(n_bands)]) * stride
+    return [(int(a), int(b)) for a, b in zip(stops[:-1], stops[1:])]
+
+
+class Sharding:
+    """Where the pieces of a (B, H, W, C) array lie on a mesh: a grid from
+    `data_spatial_mesh`, or a list of devices (`data_mesh`), read as a
+    column of one-device rows. With `batch` the batch splits over the rows
+    in order, with `height` the rows of the image over the columns in bands
+    (`band_rows` at `stride`); an axis not split is replicated along it.
+
+    put(x) gives the pieces on their devices, nested as the mesh is (each
+    contiguous, copied without a host synchronisation); gather(pieces)
+    reassembles the array on the mesh's first device."""
+
+    def __init__(self, mesh: Sequence, batch: bool, height: bool, stride: int = 1):
+        self.nested = isinstance(mesh[0], (list, tuple))
+        self.grid = [list(r) for r in mesh] if self.nested else [[d] for d in mesh]
+        self.batch, self.height, self.stride = batch, height, stride
+
+    def put(self, x) -> list:
+        x = torch.as_tensor(x)
+        n_rows, n_cols = len(self.grid), len(self.grid[0])
+        if self.batch and x.shape[0] % n_rows:
+            raise ValueError(f"batch {x.shape[0]} does not split over {n_rows} mesh rows")
+        chunks = x.tensor_split(n_rows) if self.batch else [x] * n_rows
+        rows = []
+        for row, chunk in zip(self.grid, chunks):
+            bands = ([chunk[:, a:b] for a, b in band_rows(x.shape[1], n_cols, self.stride)]
+                     if self.height else [chunk] * n_cols)
+            rows.append([p.contiguous().to(d, non_blocking=True) for p, d in zip(bands, row)])
+        return rows if self.nested else [r[0] for r in rows]
+
+    def gather(self, pieces: list) -> torch.Tensor:
+        rows = pieces if self.nested else [[p] for p in pieces]
+        first = self.grid[0][0]
+        wholes = [torch.cat([p.to(first) for p in row], 1) if self.height else row[0].to(first)
+                  for row in rows]
+        return torch.cat(wholes, 0) if self.batch else wholes[0]
+
+
+def image_sharding(mesh: Sequence, stride: int = 32) -> Sharding:
+    """(B, H, W, C) images: the batch over the mesh's rows, the height over
+    its columns in bands of whole `stride`-row blocks (the model's coarsest
+    stride: 32, or 64 with a 4-level head)."""
+    return Sharding(mesh, batch=True, height=True, stride=stride)
+
+
+def data_sharding(mesh: Sequence) -> Sharding:
+    """The batch over the mesh's rows, each chunk whole on every device of its row."""
+    return Sharding(mesh, batch=True, height=False)
+
+
+def replicated(mesh: Sequence) -> Sharding:
+    """The whole array on every device of the mesh."""
+    return Sharding(mesh, batch=False, height=False)
 
 
 def shard_dataset_indices(n_items: int, shuffle_seed: int = 0, epoch: int = 0,

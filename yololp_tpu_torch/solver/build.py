@@ -110,23 +110,29 @@ def ema_decay(updates: int) -> np.float32:
     return _F32(0.9999) * (_F32(1.0) - _F32(math.exp(float(x))))
 
 
+def param_group_label(key: str) -> str:
+    """The group of the parameter at state dict `key`: 'bias' for every
+    bias, 'bnw' for a BatchNorm's weight (flax's 'scale'; by the naming
+    contract of layers/blocks.py a BN module's name ends in 'bn'), 'w',
+    weight-decayed, for every other parameter: conv weights, a ScaleLayer's
+    'weight' and a BottleRep's 'alpha' (the JAX function labels by leaf
+    name, so those two are 'w' there too)."""
+    module, _, leaf = key.rpartition(".")
+    if leaf == "bias":
+        return "bias"
+    if leaf == "weight" and module.rpartition(".")[2].endswith("bn"):
+        return "bnw"
+    return "w"
+
+
+def label_tree(params: Dict[str, torch.Tensor]) -> Dict[str, str]:
+    """{parameter name: `param_group_label`} over a name -> tensor map."""
+    return {k: param_group_label(k) for k in params}
+
+
 def label_groups(model: nn.Module) -> Dict[str, str]:
-    """{parameter name: 'bias' | 'bnw' | 'w'}: every bias is 'bias', a
-    BatchNorm weight (flax's 'scale') is 'bnw', and every other parameter
-    'w', weight-decayed: conv weights, a ScaleLayer's 'weight' and a
-    BottleRep's 'alpha' (the JAX label_tree labels by leaf name, so those
-    two are 'w' there too)."""
-    out = {}
-    for mname, m in model.named_modules():
-        for pname, _ in m.named_parameters(recurse=False):
-            full = f"{mname}.{pname}" if mname else pname
-            if pname == "bias":
-                out[full] = "bias"
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
-                out[full] = "bnw"
-            else:
-                out[full] = "w"
-    return out
+    """`label_tree` of the model's parameters."""
+    return label_tree(dict(model.named_parameters()))
 
 
 def init_momentum(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
