@@ -204,7 +204,20 @@ toolkit. Phases, each of which raises on failure:
      beside the unsharded `_run`; then one 2560x2560 frame on (1, 4) against
      the unsharded forward of the same frame (fp32 parity, bf16 times, peak
      memory); halo rows and bytes a forward, and the host's enqueue time of
-     a batch beside the unsharded one's.
+     a batch beside the unsharded one's;
+  24. the JAX NMS's variants (ops/nms.py): phase 4's bf16 inferer built
+     again with nms_selector="approx", phase 7's int8 pallas plan and phase
+     19's mesh, each run with the "approx" selector (the same exact top-K as
+     "topk" off the TPU) and held bit for bit to its "topk" run, the launch
+     counts set to 0 just before and read just after (one greedy_nms launch
+     a batch, one a mesh entry sharded); nms_iters 1, 2 and 16 (a fixed
+     number of update steps in plain PyTorch ops, no kernel launch) on
+     phase 4's decode, keep-mask and detections equal to the same call on
+     the CPU; on phase 3's 512-deep band chain nms_iters=16 equal to the
+     CPU and unequal to the exact mask; then bench_nms's grid (nms_iters
+     0 and 16, and the candidate step alone; off the TPU "approx" runs the
+     same program as "topk", which the tool times once for both keys) at
+     B = 32, K = 512.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -3280,6 +3293,144 @@ def phase_spatial(results, card, dev, weights, cfg, inferer, batch):
     return launches
 
 
+NMS_ITERS = (1, 2, 16)  # phase 24: the fixed bounds held card against CPU
+
+
+def equal_outputs(what, got, want):
+    """det/valid/num of two NMS runs, equal bit for bit (on the host)."""
+    for name, a, b in zip(("det", "valid", "num"), got, want):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def counted(fn, *counters):
+    """(fn's output, each counter module's launches during the call): the
+    counts are set to 0 just before the call and read just after it."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    sync_all()
+    return out, [c.launches for c in counters]
+
+
+def phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, ctx8):
+    """24. The JAX NMS's variants on the card: the "approx" candidate
+    selector on the bf16, int8 and sharded paths against "topk", and the
+    fixed bound nms_iters against the CPU (see the module docstring)."""
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops.nms import non_max_suppression, select_candidates
+    from yololp_tpu_torch.parallel.infer import make_sharded_infer_fn
+    from yololp_tpu_torch.quant import int8_infer
+    from yololp_tpu_torch.tools import bench_nms
+
+    t_phase = time.perf_counter()
+    out = {}
+    # bf16 Inferer._run, the selector given to the Inferer as the CLI gives it
+    approx = Inferer(".", weights, cfg, img_size=IMG, half=True, iou_thres=inferer.iou_thres,
+                     max_det=inferer.max_det, nms_selector="approx", device=dev)
+    approx.conf_thres = inferer.conf_thres
+    approx.warmup()
+    want = inferer._run(batch)
+    got, (n_nms,) = counted(lambda: approx._run(batch), cuda_nms)
+    if n_nms != 1:
+        raise AssertionError(f"bf16 approx: {n_nms} greedy_nms launches for one batch")
+    equal_outputs("bf16 _run approx vs topk", got, want)
+    out["bf16"] = dict(greedy_nms_launches=n_nms, kept=[int(got[2].min()), int(got[2].max())])
+    del approx
+
+    # int8, phase 7's calibration and conf gate, the pallas plan
+    inferer8, amax, conf8 = ctx8["inferer8"], ctx8["amax"], ctx8["conf"]
+    kw8 = dict(conf_thres=conf8, iou_thres=0.45, max_det=1000, conv_impl="pallas", device=dev)
+    run_t = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, amax, **kw8)
+    run_a = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, amax,
+                                          candidate_selector="approx", **kw8)
+    want8 = run_t(batch)
+    run_a(batch)
+    got8, (n_nms8, n_conv8) = counted(lambda: run_a(batch), cuda_nms, cuda_conv)
+    if n_nms8 != 1 or n_conv8 < 30:
+        raise AssertionError(f"int8 approx: greedy_nms {n_nms8}x, int8_conv {n_conv8}x a batch")
+    equal_outputs("int8 approx vs topk", got8, want8)
+    out["int8"] = dict(greedy_nms_launches=n_nms8, int8_conv_launches=n_conv8)
+    del run_t, run_a
+
+    # sharded, over phase 19's mesh
+    two = torch.cuda.device_count() >= 2
+    mesh = [dev, torch.device("cuda", 1) if two else dev]
+    kw = dict(conf_thres=inferer.conf_thres, iou_thres=inferer.iou_thres, max_det=inferer.max_det,
+              pre_nms_topk=TOPK)
+    run_t, put = make_sharded_infer_fn(inferer.model, mesh, **kw)
+    run_a, _ = make_sharded_infer_fn(inferer.model, mesh, candidate_selector="approx", **kw)
+    staged = put(batch)
+    want_s = run_t(staged)
+    run_a(staged)
+    got_s, (n_nms_s,) = counted(lambda: run_a(staged), cuda_nms)
+    if n_nms_s != len(mesh):
+        raise AssertionError(f"sharded approx: {n_nms_s} greedy_nms launches, mesh of {len(mesh)}")
+    equal_outputs("sharded approx vs topk", got_s, want_s)
+    out["sharded"] = dict(greedy_nms_launches=n_nms_s, mesh=[str(d) for d in mesh])
+    del run_t, run_a, staged
+    print(f"[{card}] phase 24 approx selector == topk bit for bit (det, valid, num): bf16 _run "
+          f"(greedy_nms {n_nms} a batch, kept {out['bf16']['kept'][0]}..{out['bf16']['kept'][1]}), "
+          f"int8 pallas (greedy_nms {n_nms8}, int8_conv {n_conv8} a batch), sharded over "
+          f"{len(mesh)} (greedy_nms {n_nms_s} a batch)", flush=True)
+
+    # nms_iters on phase 4's decode: card == CPU, mask and detections
+    nkw = dict(conf_thres=inferer.conf_thres, iou_thres=inferer.iou_thres, max_det=inferer.max_det)
+    box_k, score_k, _ = select_candidates(pred, inferer.conf_thres, TOPK)
+    exact = cuda_nms.greedy_nms_mask(box_k, score_k, inferer.iou_thres).cpu()
+    pred_cpu, box_cpu, score_cpu = pred.cpu(), box_k.cpu(), score_k.cpu()
+    out["iters"] = {}
+    for it in NMS_ITERS:
+        (mask, dets), (n_it,) = counted(lambda: (
+            cuda_nms.greedy_nms_mask(box_k, score_k, inferer.iou_thres, iters=it),
+            non_max_suppression(pred, nms_iters=it, **nkw)), cuda_nms)
+        if n_it:
+            raise AssertionError(f"nms_iters={it} launched the exact kernel {n_it}x")
+        if not torch.equal(mask.cpu(), cuda_nms.greedy_nms_mask(box_cpu, score_cpu,
+                                                                inferer.iou_thres, iters=it)):
+            raise AssertionError(f"nms_iters={it}: the card's keep-mask != the CPU's")
+        equal_outputs(f"nms_iters={it} card vs CPU", dets,
+                      non_max_suppression(pred_cpu, nms_iters=it, **nkw))
+        out["iters"][it] = dict(slots_off_exact=int((mask.cpu() != exact).sum()),
+                                kept=int(dets[2].sum()))
+    print(f"[{card}] phase 24 nms_iters {NMS_ITERS} on phase 4's decode (B = {BATCH}, K = "
+          f"{TOPK}): keep-mask and detections card == CPU, no greedy_nms launch; slots off the "
+          f"exact mask " + ", ".join(f"{it}: {v['slots_off_exact']}" for it, v in
+                                     out["iters"].items()), flush=True)
+
+    # the 512-deep band chain: the bound bites
+    boxes = torch.from_numpy(np.stack([chain_boxes(512)] * 4))
+    scores = torch.from_numpy(np.tile(np.linspace(1, 0.5, 512, dtype=np.float32), (4, 1)))
+    b_card, s_card = boxes.to(dev), scores.to(dev)
+    chain16 = cuda_nms.greedy_nms_mask(b_card, s_card, 0.2, iters=16).cpu()
+    if not torch.equal(chain16, cuda_nms.greedy_nms_mask(boxes, scores, 0.2, iters=16)):
+        raise AssertionError("band chain, nms_iters=16: card != CPU")
+    chain_exact = cuda_nms.greedy_nms_mask(b_card, s_card, 0.2).cpu()
+    if torch.equal(chain16, chain_exact):
+        raise AssertionError("band chain: nms_iters=16 equals the exact mask (the bound did not bite)")
+    out["band_chain"] = dict(kept_iters16=int(chain16.sum()), kept_exact=int(chain_exact.sum()))
+    print(f"[{card}] phase 24 512-deep band chain, nms_iters=16: card == CPU, kept "
+          f"{int(chain16.sum())} against the exact mask's {int(chain_exact.sum())} (the bound bites)",
+          flush=True)
+
+    # the NMS stage's variants timed as the JAX tool times them
+    bench = bench_nms.main(["--device", "cuda", "--batch-size", str(BATCH), "--iters", "8",
+                            "--pre-nms-topk", str(TOPK)])
+    grid = {k: bench[k] for k in ("topk_iters0_ms", "topk_iters16_ms", "approx_iters0_ms",
+                                  "approx_iters16_ms", "candidate_only_topk_ms",
+                                  "candidate_only_approx_ms")}
+    out["bench_nms"] = grid
+    print(f"[{card}] phase 24 bench_nms B = {bench['batch']}, A = {bench['anchors']}, K = "
+          f"{bench['pre_nms_topk']} (utils/profiler.timed_scan, {bench['iters']} chained steps; "
+          f"approx timed as {bench['approx_timed_as']}), "
+          f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in grid.items()), flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    results["nms_variants"] = out
+    print(f"phase 24 in {out['seconds']:.0f} s")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -3455,6 +3606,9 @@ def main():
     # 23. the spatial mesh: height-sharded inference with halo exchange
     spatial_launches = phase_spatial(results, card, dev, weights, cfg, inferer, batch)
 
+    # 24. NMS's variants: the approx selector on every path, the nms_iters bound
+    variants = phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, ctx8)
+
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
@@ -3468,7 +3622,9 @@ def main():
                 "export_launches": {k: export[k]["launches_aoti"][0] for k in ("bf16", "int8")},
                 "runner_launches": {k: export[k]["runner"]["launches_per_batch"]["greedy_nms"]
                                     for k in ("bf16", "int8")},
-                "spatial_launches": spatial_launches},
+                "spatial_launches": spatial_launches,
+                "approx_launches": {k: variants[k]["greedy_nms_launches"]
+                                    for k in ("bf16", "int8", "sharded")}},
                {"name": "int8_conv", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/int8_conv.cu",
                 "replaces": "yololp_tpu/ops/pallas_conv.py:58",

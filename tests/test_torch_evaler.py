@@ -218,8 +218,10 @@ def test_run_eval_and_refusals(synthetic, models):
 
     loader, dataset = ev.init_data("val", native=True)
     assert isinstance(loader, NativeValLoader) and len(dataset) == 6
-    with pytest.raises(NotImplementedError, match="topk"):
-        Evaler(data, nms_selector="approx", device="cpu")
+    # the "approx" selector takes the same candidates as "topk" off the TPU
+    approx, _ = run_eval(tmodel, None, data, workers=0, half=False, device="cpu",
+                         nms_selector="approx", **{k: v for k, v in KW.items() if k != "max_det"})
+    assert approx == results
 
 
 def test_cli_runs_end_to_end_on_cpu(synthetic, tmp_path, capsys):
@@ -243,6 +245,6 @@ def test_cli_runs_end_to_end_on_cpu(synthetic, tmp_path, capsys):
     # the identity on them, as the per-image loader's is
     native, _ = main(args + ["--native-preproc"])
     assert native == results
-    with pytest.raises(SystemExit):
-        main(args + ["--nms-selector", "approx"])
-    assert "approx" in capsys.readouterr().err
+    # --nms-selector approx, through the mesh's NMS call too
+    approx, _ = main(args + ["--nms-selector", "approx", "--mesh", "2"])
+    assert approx == results

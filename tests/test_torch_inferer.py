@@ -128,7 +128,12 @@ def test_cli_runs_on_cpu(ckpt, images, tmp_path):
     from yololp_tpu_torch.tools.infer import main
 
     cv2.imwrite(str(tmp_path / "a.png"), images[0])
-    main(["--source", str(tmp_path / "a.png"), "--conf-file", "yololpn", "--weights", ckpt,
-          "--img-size", "128", "--device", "cpu", "--conf-thres", "0.5", "--not-save-img",
-          "--project", str(tmp_path / "out")])
-    assert (tmp_path / "out" / "exp" / "labels" / "a.txt").read_text(encoding="utf-8")
+    args = ["--source", str(tmp_path / "a.png"), "--conf-file", "yololpn", "--weights", ckpt,
+            "--img-size", "128", "--device", "cpu", "--conf-thres", "0.5", "--not-save-img",
+            "--project", str(tmp_path / "out")]
+    main(args)
+    labels = (tmp_path / "out" / "exp" / "labels" / "a.txt").read_text(encoding="utf-8")
+    assert labels
+    # the JAX CLI's other selector: the same candidates off the TPU
+    main(args + ["--nms-selector", "approx", "--name", "approx"])
+    assert (tmp_path / "out" / "approx" / "labels" / "a.txt").read_text(encoding="utf-8") == labels

@@ -181,11 +181,17 @@ def test_stable_compact_order_equals_jax():
 
 
 def test_unported_options_raise():
+    """The JAX function's "approx" selector and nms_iters bound, once refused,
+    run now (tests/test_torch_nms_variants.py holds them against JAX); a
+    selector of neither name raises."""
     pred = torch.from_numpy(make_decode(b=1, a=200))
-    with pytest.raises(NotImplementedError, match="approx"):
-        tnms.non_max_suppression(pred, candidate_selector="approx")
-    with pytest.raises(NotImplementedError):
-        tnms.non_max_suppression(pred, nms_iters=16)
+    topk = tnms.non_max_suppression(pred, pre_nms_topk=64)
+    approx = tnms.non_max_suppression(pred, pre_nms_topk=64, candidate_selector="approx")
+    assert all(torch.equal(a, t) for a, t in zip(approx, topk))
+    det, valid, num = tnms.non_max_suppression(pred, nms_iters=16)
+    assert det.shape == (1, 200, 28) and int(num[0]) == int(valid.sum()) > 0
+    with pytest.raises(ValueError, match="approx"):
+        tnms.non_max_suppression(pred, candidate_selector="approx_max_k")
 
 
 def test_kernel_wrapper_checks_inputs():

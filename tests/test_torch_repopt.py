@@ -111,6 +111,28 @@ def test_reinitialize_and_masks_exact(trees):
     assert all(torch.isfinite(v).all() for v in drawn.values())
 
 
+@pytest.mark.parametrize("use_identity_scales", [True, False])
+def test_reinitialize_identity_scales_equal_jax(trees, use_identity_scales):
+    """JAX's use_identity_scales=False adds the plain identity to the blocks
+    with an identity branch in place of identity times its scale."""
+    _, opt, scales = trees
+    key = jax.random.PRNGKey(12)
+    want = jrepopt.reinitialize(opt["params"], scales, key,
+                                use_identity_scales=use_identity_scales)
+    sd = jax_to_state_dict(opt)
+    keys = trepopt.realvgg_conv_keys(sd)
+    new = trepopt.reinitialize(sd, scales, use_identity_scales=use_identity_scales,
+                               kernels_1x1=_kernels_1x1_as_jax_draws(opt["params"], len(keys), key))
+    want_sd = jax_to_state_dict({"params": jax.tree_util.tree_map(np.asarray, want)})
+    for k in keys:
+        assert torch.equal(new[k], want_sd[k]), k
+    scaled = trepopt.reinitialize(sd, scales, kernels_1x1=_kernels_1x1_as_jax_draws(
+        opt["params"], len(keys), key))
+    # the setting matters exactly on the blocks with an identity branch
+    assert [not torch.equal(new[k], scaled[k]) for k in keys] == [
+        len(sc) == 3 and not use_identity_scales for sc in scales]
+
+
 def test_scales_files_interchange(tmp_path, trees):
     hs, _, scales = trees
     jrepopt.save_scales(scales, str(tmp_path / "jax.msgpack"))

@@ -113,7 +113,8 @@ def test_profile_sections(capsys, amax_json):
     out = last_json(capsys.readouterr().out)
     cuts = ["..stem", "..ERBlock_2", "..ERBlock_3", "..ERBlock_4", "..ERBlock_5", "backbone",
             "backbone+neck", "full fwd", "e2e fwd+nms"]
-    want = [f"{c} {t}" for t in ("bf16", "int8") for c in cuts] + ["nms alone"]
+    want = [f"{c} {t}" for t in ("bf16", "int8") for c in cuts] + [
+        "nms alone (nms_iters=0)", "nms alone (nms_iters=16)"]
     assert [r["section"] for r in out["rows"]] == want
     assert all(positive(r["ms_per_batch"], r["img_per_s"]) for r in out["rows"])
 
@@ -122,12 +123,20 @@ def test_bench_nms(capsys):
     bench_nms.main(["--device", "cpu", "--small"])
     out = last_json(capsys.readouterr().out)
     assert (out["device"], out["batch"], out["anchors"], out["pre_nms_topk"]) == ("cpu", 2, 1344, 512)
-    assert positive(out["topk_iters0_ms"], out["candidate_only_topk_ms"], out["greedy_nms_mask_ms"])
+    # the JAX tool's grid: each selector with each keep-mask, and each
+    # selector alone
+    grid = [f"{s}_iters{n}_ms" for s in ("topk", "approx") for n in (0, 16)]
+    assert positive(*(out[key] for key in grid), out["candidate_only_topk_ms"],
+                    out["candidate_only_approx_ms"], out["greedy_nms_mask_ms"])
+    # off the TPU the selectors run one program, timed once
+    assert out["approx_timed_as"] == "topk"
+    assert [out[f"approx_iters{n}_ms"] for n in (0, 16)] == [out[f"topk_iters{n}_ms"]
+                                                             for n in (0, 16)]
+    assert out["candidate_only_approx_ms"] == out["candidate_only_topk_ms"]
     # the conf gate leaves a zero tail; suppression keeps at most the candidates
     cand, kept = out["candidates_per_image"], out["kept_per_image"]
     assert 0 < cand["min"] <= cand["max"] < 512
     assert 0 < kept["min"] and kept["max"] <= cand["max"]
-    assert not any(key.startswith("approx") or "iters16" in key for key in out)
 
 
 def _self_label(path, det, size):

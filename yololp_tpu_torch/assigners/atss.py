@@ -14,7 +14,8 @@ Held element for element against the jitted JAX function:
   and multiply by fp32(1/K) and fp32(1/(K-1)), as the jitted program reduces
   and divides (ops/division.py); the same on the CPU and the card;
 - conflicts go to the first maximum (`argmax`), as in JAX.
-`approx_topk` (lax.approx_max_k in JAX) maps to the exact selection.
+`approx_topk` (lax.approx_max_k in JAX) maps to the exact selection, as
+JAX runs it off the TPU, where XLA lowers approx_max_k to an exact sort.
 """
 
 from __future__ import annotations
@@ -154,7 +155,7 @@ def atss_assign(anchors, n_level_list, gt_pro, gt_alp, gt_ads, gt_bboxes, gt_cor
     (B, M, 6), gt_bboxes (B, M, 4) xyxy pixels, gt_corners (B, M, 8), mask_gt
     (B, M, 1) 1.0 for real gts; pd_bboxes (B, A, 4) detached predicted xyxy
     pixels or None. `approx_topk` maps to the exact selection."""
-    del approx_topk  # no Hopper counterpart of approx_max_k: exact top-k
+    del approx_topk  # off the TPU, XLA lowers lax.approx_max_k to an exact sort
     bsz, n_max = gt_bboxes.shape[:2]
     n_anchors = anchors.shape[0]
 

@@ -6,7 +6,8 @@ align metric = score(gt province class)^alpha * IoU(gt, pred)^beta; the
 per-gt top-k anchors by that metric (a stable sort: ties to the lower index,
 as lax.top_k), restricted to anchors inside the gt box; conflicts to the
 highest IoU; all 8 task scores normalized by the per-gt align metric. Runs
-under `torch.no_grad()`. `approx_topk` maps to the exact selection.
+under `torch.no_grad()`. `approx_topk` maps to the exact selection, as JAX
+runs it off the TPU, where XLA lowers lax.approx_max_k to an exact sort.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def tal_assign(pd_pro_scores, pd_bboxes, anc_points, gt_pro, gt_alp, gt_ads, gt_
                approx_topk: bool = False) -> ATSSResult:
     """pd_pro_scores (B, A, npro) sigmoided, pd_bboxes (B, A, 4) detached
     xyxy pixels, anc_points (A, 2) pixels; gts as for atss_assign."""
-    del approx_topk  # no Hopper counterpart of approx_max_k: exact top-k
+    del approx_topk  # off the TPU, XLA lowers lax.approx_max_k to an exact sort
     gt_idx = gt_pro.to(torch.int32).clamp(0, npro - 1).long()          # (B, M)
     # each anchor's score for each gt's province class: (B, M, A)
     bbox_scores = torch.gather(pd_pro_scores.transpose(1, 2), 1,

@@ -38,9 +38,6 @@ class Evaler:
                  half: bool = True, workers: int = 4, max_det: int = 300,
                  eval_hyp: Optional[Dict] = None, nms_selector: str = "topk",
                  device="cuda"):
-        if nms_selector != "topk":
-            raise NotImplementedError(
-                f"nms_selector {nms_selector!r}: only 'topk' is ported (ops/nms.py)")
         self.data = data_dict
         self.batch_size = batch_size
         self.img_size = img_size

@@ -215,9 +215,11 @@ class Inferer:
                 f.write(" ".join(f"{v:.4f}" for v in d[:12])
                         + f" {conf:.4f} {self.plate_text(d)}\n")
 
-    def infer(self, save_dir: str, save_txt: bool = True, save_img: bool = True):
+    def infer(self, save_dir: str, save_txt: bool = True, save_img: bool = True,
+              view: bool = False):
         """Iterate the source one frame at a time, writing label txts and
-        annotated images (a video's frames into <stem>_out.mp4)."""
+        annotated images (a video's frames into <stem>_out.mp4). `view` is
+        accepted and unused, as in the JAX package: nothing is shown."""
         import cv2
 
         save_dir = Path(save_dir)

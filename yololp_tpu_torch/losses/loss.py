@@ -15,7 +15,8 @@ reciprocal multiplies (`ads / 6`, ops/division.py; the others divide by
 powers of two, where both agree), its clips split a tie's gradient in half
 where `torch.clamp` passes it whole (the VFL clips a saturated sigmoid at
 1e-12 and 1: the tests compare gradients away from the ends).
-`approx_topk=True` maps to the exact selection.
+`approx_topk=True` maps to the exact selection, as JAX runs it off the TPU,
+where XLA lowers lax.approx_max_k to an exact sort.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ class LossConfig(NamedTuple):
     grid_cell_offset: float = 0.5
     topk: int = 9
     assigner: str = "atss"   # 'atss' | 'tal'
-    # lax.approx_max_k in the JAX package; here the exact selection either way
+    # lax.approx_max_k in the JAX package: an exact sort off the TPU, as here
     approx_topk: bool = False
     tal_topk: int = 13
     tal_alpha: float = 1.0

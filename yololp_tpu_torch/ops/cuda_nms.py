@@ -10,7 +10,10 @@ The plain version mirrors the JAX default, the fixpoint of
 yololp_tpu/ops/nms.py:44-79: keep_i = valid_i and no kept j < i with
 IoU(j, i) > thres, iterated to convergence. The recurrence has a unique
 solution, so the fixpoint is the exact sequential greedy answer. It stays the
-kernel's oracle.
+kernel's oracle. `greedy_nms_mask(..., iters=N)` with N > 0 is the JAX
+package's fixed bound instead (`greedy_nms_mask_bounded`, plain PyTorch ops
+on either device): N steps of the same update, exact only for suppression
+chains of depth < N.
 
 The kernel computes the same answer in two steps, each mirrored here in
 plain PyTorch so the CPU tests can hold the design to the JAX package:
@@ -34,22 +37,45 @@ MAX_K = 1024  # the kernel's walk holds ceil(K/32) <= 32 words, one a lane
 launches = 0
 
 
+def _suppression_matrix(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """(B, K, K) bool: row j suppresses column i > j when IoU(j, i) > thres."""
+    k = boxes.shape[-2]
+    idx = torch.arange(k, device=boxes.device)
+    return (pairwise_iou(boxes, boxes) > iou_thres) & (idx[:, None] < idx[None, :])
+
+
+def _update(sup: torch.Tensor, valid: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """One step of the parallel update map: valid and no kept j < i suppresses i."""
+    return valid & ~(sup & keep[..., :, None]).any(dim=-2)
+
+
 def greedy_nms_mask_plain(boxes: torch.Tensor, scores: torch.Tensor,
                           iou_thres: float) -> torch.Tensor:
     """boxes (B, K, 4) score-sorted xyxy, scores (B, K) -> bool keep (B, K)."""
-    k = boxes.shape[-2]
-    iou = pairwise_iou(boxes, boxes)
-    idx = torch.arange(k, device=boxes.device)
-    higher = idx[:, None] < idx[None, :]  # row j suppresses col i > j
-    sup_matrix = (iou > iou_thres) & higher
+    sup = _suppression_matrix(boxes, iou_thres)
     valid = scores > 0.0
     keep = valid
-    for _ in range(k):
-        suppressed = (sup_matrix & keep[..., :, None]).any(dim=-2)
-        new = valid & ~suppressed
+    for _ in range(boxes.shape[-2]):
+        new = _update(sup, valid, keep)
         if torch.equal(new, keep):
             break
         keep = new
+    return keep
+
+
+def greedy_nms_mask_bounded(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+                            iters: int) -> torch.Tensor:
+    """The JAX package's fixed bound (`greedy_nms_mask(iters=N)`, its
+    `fori_loop`): N steps of the update map from keep = valid, with no test
+    for convergence, so no step waits on the host. A suppression chain deeper
+    than N is not resolved: the mask then differs from the exact one. Plain
+    PyTorch ops on the tensors' device; JAX computes it in XLA, outside any
+    Pallas kernel."""
+    sup = _suppression_matrix(boxes, iou_thres)
+    valid = scores > 0.0
+    keep = valid
+    for _ in range(iters):
+        keep = _update(sup, valid, keep)
     return keep
 
 
@@ -59,8 +85,7 @@ def suppression_words_plain(boxes: torch.Tensor, iou_thres: float) -> torch.Tens
     IoU(i, j) > thres. Words at or left of the diagonal are 0."""
     b, k = boxes.shape[:2]
     w = -(-k // 32)
-    idx = torch.arange(k, device=boxes.device)
-    sup = (pairwise_iou(boxes, boxes) > iou_thres) & (idx[:, None] < idx[None, :])
+    sup = _suppression_matrix(boxes, iou_thres)
     bits = torch.zeros((b, k, 32 * w), dtype=torch.int64, device=boxes.device)
     bits[..., :k] = sup.long()
     weights = 2 ** torch.arange(32, dtype=torch.int64, device=boxes.device)
@@ -158,9 +183,12 @@ def greedy_nms_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-def greedy_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
-                    iou_thres: float) -> torch.Tensor:
-    """Exact greedy keep-mask, the op `yololp_torch::greedy_nms_mask`
-    (ops/library.py): the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU tensor."""
+def greedy_nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+                    iters: int = 0) -> torch.Tensor:
+    """Greedy keep-mask, with the JAX function's signature. iters=0: the
+    exact mask, the op `yololp_torch::greedy_nms_mask` (ops/library.py): the
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor.
+    iters > 0: the fixed bound, `greedy_nms_mask_bounded`."""
+    if iters:
+        return greedy_nms_mask_bounded(boxes, scores, iou_thres, iters)
     return torch.ops.yololp_torch.greedy_nms_mask(boxes, scores, float(iou_thres))

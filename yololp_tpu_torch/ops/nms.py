@@ -10,6 +10,15 @@ confidences (pro, alp, ad0..ad5), [20:28] per-task argmax class ids (float).
 Steps: mean-of-8 confidence gate, top-k of `pre_nms_topk` by a stable
 descending sort (ties go to the lower index, as lax.top_k), the greedy
 keep-mask (a CUDA kernel on the card, ops/cuda_nms.py) and stable compaction.
+
+The JAX function's two variants are here too. `candidate_selector="approx"`
+names lax.approx_max_k, which on a TPU is a PartialReduce with recall target
+0.95 and which XLA lowers to an exact sort on every other backend: off the
+TPU it returns lax.top_k's values and indices, ties included. So both
+selectors take the same exact, stable top-K here, and give the same
+candidates bit for bit as the JAX function run anywhere but a TPU.
+`nms_iters=N > 0` replaces the exact keep-mask by N steps of the parallel
+update map (cuda_nms.greedy_nms_mask_bounded), as JAX's fori_loop does.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from yololp_tpu_torch.ops.cuda_nms import greedy_nms_mask
 from yololp_tpu_torch.ops.geometry import xywh2xyxy
 
 NPRO, NALP, NADS = 31, 24, 37
+SELECTORS = ("topk", "approx")
 
 
 def _split_scores(cls):
@@ -70,6 +80,9 @@ def select_candidates(prediction: torch.Tensor, conf_thres: float, pre_nms_topk:
     """Gate and rank the anchors of a (B, A, 290) decode; keep the top
     K = min(pre_nms_topk, A) of each image.
 
+    The JAX function takes approx_max_k when its selector is "approx" and
+    K < A, else top_k; off the TPU both are this sort.
+
     Returns box_k (B, K, 4) xyxy, score_k (B, K) sorted descending (0 where
     gated out) and rest_k (B, K, 24): corners, the 8 task confidences and
     the 8 task class ids (as float) of each candidate.
@@ -111,17 +124,16 @@ def non_max_suppression(
 
     Returns detections (B, N, 28) zero-padded, valid (B, N) bool and
     num_valid (B,) int32, with N = min(max_det, min(pre_nms_topk, A)).
-    `nms_iters` (a fixed fixpoint bound) and the "approx" selector
-    (lax.approx_max_k) of the JAX function are not ported and raise.
+    `candidate_selector`: "topk", or "approx", which selects the same
+    candidates off the TPU (the module's docstring). `nms_iters`: 0 for the
+    exact keep-mask (the CUDA kernel on the card), N > 0 for JAX's fixed
+    bound of N update steps.
     """
-    if candidate_selector != "topk":
-        raise NotImplementedError(
-            f"candidate_selector {candidate_selector!r}: only 'topk' is ported")
-    if nms_iters:
-        raise NotImplementedError("nms_iters: the keep-mask is always exact")
+    if candidate_selector not in SELECTORS:
+        raise ValueError(f"candidate_selector {candidate_selector!r}: one of {SELECTORS}")
     box_k, score_k, rest_k = select_candidates(prediction, conf_thres, pre_nms_topk,
                                                compat_ad4_bug)
-    keep = greedy_nms_mask(box_k, score_k, iou_thres)
+    keep = greedy_nms_mask(box_k, score_k, iou_thres, iters=nms_iters)
 
     order = stable_compact_order(keep, max_det)
     det = torch.cat([_take(box_k, order), _take(rest_k, order)], -1)

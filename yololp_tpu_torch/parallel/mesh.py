@@ -6,9 +6,13 @@ mesh and lets XLA partition it. Here there is one process per card, started
 by torchrun (`python -m torch.distributed.run`) or spawned by
 `tools.train --data-parallel`, joined by `torch.distributed`:
 
-  * `initialize_distributed` joins the group from torchrun's environment
-    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), with NCCL for
-    cards and gloo for the CPU unless the caller names a backend;
+  * `initialize_distributed` joins the group as the JAX function does
+    (a coordinator's address, the number of processes and this process's
+    id, as arguments or as COORDINATOR_ADDRESS, NUM_PROCESSES and
+    PROCESS_ID), or from torchrun's environment (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT), which comes before the JAX
+    variables, with NCCL for cards and gloo for the CPU unless the caller
+    names a backend;
   * `DistributedDataParallel` averages the gradients, and each rank's loss
     is its share of the global loss times the world size, so the update is
     the global batch's (core/train_step.py);
@@ -61,21 +65,70 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
-def initialize_distributed(backend: Optional[str] = None,
-                           timeout: Optional[datetime.timedelta] = None) -> bool:
-    """Join the process group torchrun describes (env:// rendezvous). A
-    no-op without WORLD_SIZE in the environment, or when the group is
-    already joined; returns whether this process is in a group.
+JAX_VARS = ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")
 
-    The JAX package's variables map as COORDINATOR_ADDRESS ->
-    MASTER_ADDR:MASTER_PORT, NUM_PROCESSES -> WORLD_SIZE, PROCESS_ID ->
-    RANK (torchrun sets all of them, and LOCAL_RANK). `backend`: "nccl" or
-    "gloo"; None takes NCCL when a card is present and gloo otherwise. A
-    backend is never switched: NCCL without a card raises. With NCCL each
-    rank takes the card of its LOCAL_RANK."""
+
+def jax_rendezvous(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
+                   process_id: Optional[int] = None) -> Optional[Tuple[str, int, int]]:
+    """The JAX package's rendezvous, (coordinator "host:port", number of
+    processes, process id), from the arguments or else COORDINATOR_ADDRESS,
+    NUM_PROCESSES (default 1) and PROCESS_ID (default 0); None without a
+    coordinator. The precedence is the JAX function's `arg or env`, its
+    quirk included: an explicit process_id=0 (or num_processes=0) is falsy
+    and so yields to the environment."""
+    coordinator = coordinator or os.environ.get("COORDINATOR_ADDRESS")
+    if coordinator is None:
+        return None
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"coordinator {coordinator!r}: expected 'host:port'")
+    return (coordinator, num_processes or int(os.environ.get("NUM_PROCESSES", 1)),
+            process_id or int(os.environ.get("PROCESS_ID", 0)))
+
+
+def initialize_distributed(backend: Optional[str] = None,
+                           timeout: Optional[datetime.timedelta] = None, *,
+                           coordinator: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None) -> bool:
+    """Join a process group; returns whether this process is in one (a
+    no-op returning True when the group is already joined).
+
+    Three rendezvous, tried in this order:
+      * a `coordinator` argument: the JAX package's rendezvous
+        (`jax_rendezvous`) over tcp://<coordinator>;
+      * torchrun's per-process RANK, WORLD_SIZE, MASTER_ADDR and
+        MASTER_PORT over env://, whenever WORLD_SIZE is set, so that a
+        host-wide COORDINATOR_ADDRESS does not give every rank one id;
+      * COORDINATOR_ADDRESS with NUM_PROCESSES and PROCESS_ID, as the JAX
+        CLIs are launched, over tcp://<coordinator>.
+    With none of them, the call is a no-op returning False (single process).
+
+    One process drives one card here, so NUM_PROCESSES counts processes,
+    that is cards, where in JAX it counts hosts (one process drives all of
+    its host's chips). `tools.train` maps a launch of one process a host onto
+    one process a card (it spawns them); a caller of this function on a
+    host of several cards starts one process per card itself.
+
+    `backend`: "nccl" or "gloo"; None takes NCCL when a card is present and
+    gloo otherwise. A backend is never switched: NCCL without a card raises.
+    With NCCL each process takes the card of its LOCAL_RANK (torchrun sets
+    it), else of its rank modulo the visible cards. JAX's three arguments
+    are keywords here: a positional argument is the backend."""
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo' (a coordinator is the "
+                         "keyword argument coordinator=)")
     if _active():
         return True
-    if "WORLD_SIZE" not in os.environ:
+    tcp = None if coordinator is None and "WORLD_SIZE" in os.environ else \
+        jax_rendezvous(coordinator, num_processes, process_id)
+    if tcp is not None:
+        coordinator, world, proc = tcp
+        init = {"init_method": f"tcp://{coordinator}", "world_size": world, "rank": proc}
+    elif "WORLD_SIZE" in os.environ:
+        init = {"init_method": "env://"}
+        proc = int(os.environ.get("RANK", 0))
+    else:
         return False
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
@@ -83,9 +136,10 @@ def initialize_distributed(backend: Optional[str] = None,
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'nccl' needs a CUDA card; name backend='gloo' "
                                "for ranks on the CPU")
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0))))
-    kw = {} if timeout is None else {"timeout": timeout}
-    dist.init_process_group(backend=backend, init_method="env://", **kw)
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", proc % torch.cuda.device_count())))
+    if timeout is not None:
+        init["timeout"] = timeout
+    dist.init_process_group(backend=backend, **init)
     return True
 
 

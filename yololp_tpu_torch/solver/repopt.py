@@ -93,12 +93,15 @@ def _check(keys, scales):
 
 def reinitialize(state_dict: Mapping[str, torch.Tensor], scales: Scales,
                  generator: Optional[torch.Generator] = None,
-                 kernels_1x1: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                 kernels_1x1: Optional[Sequence[torch.Tensor]] = None,
+                 use_identity_scales: bool = True) -> Dict[str, torch.Tensor]:
     """The RealVGG 3x3 kernels re-initialized as the CSLA-equivalent sum,
     {key: new kernel} for each one (the other entries are unchanged). The
     fresh 1x1 kernels, one per block in tree order, are `kernels_1x1`
     (OIHW) or drawn from `generator` as torch's Conv2d default init,
-    U(-b, b) with b = 1/sqrt(fan_in)."""
+    U(-b, b) with b = 1/sqrt(fan_in). A block with an identity branch adds
+    the identity times its identity scale, or, with use_identity_scales
+    False, the plain identity."""
     keys = realvgg_conv_keys(state_dict)
     _check(keys, scales)
     out = {}
@@ -119,7 +122,7 @@ def reinitialize(state_dict: Mapping[str, torch.Tensor], scales: Scales,
                 raise ValueError(f"{key}: an identity scale on a {in_ch}->{out_ch} kernel")
             eye = torch.zeros_like(new)
             eye[torch.arange(in_ch), torch.arange(in_ch), 1, 1] = 1.0
-            new = new + eye * col[0]
+            new = new + (eye * col[0] if use_identity_scales else eye)
         out[key] = new.to(state_dict[key].dtype)
     return out
 

@@ -3,19 +3,22 @@
 Times `non_max_suppression` end to end on realistic decoded predictions at
 serving shape (default B = 128, A = 8400 anchors at 640 px): ~1.5% of the
 anchors carry confident per-task scores, so the confidence gate leaves a
-zero tail in the K = 512 candidates of every image. Beside it: the candidate
-selection alone (gate, ranking score and the stable sort that takes the top
-K, with no gathers, suppression or compaction), and the greedy keep-mask
+zero tail in the K = 512 candidates of every image. As the JAX tool, it
+times each candidate selector ("topk", "approx") with each keep-mask
+(nms_iters 0, the exact mask of the CUDA kernel, and 16, the fixed bound of
+16 update steps in plain PyTorch ops): `<selector>_iters<N>_ms`. Off the TPU
+"approx" selects as "topk" does (ops/nms.py): the two selectors run one
+program, so each program is timed once and the `approx_*` keys hold the
+`topk_*` measurement (`approx_timed_as: "topk"` says so). Beside them: the
+candidate selection alone (`candidate_only_<selector>_ms`: gate, ranking
+score and the stable sort that takes the top K, with no gathers,
+suppression or compaction; one measurement as well), and the
+greedy keep-mask
 alone on this traffic's candidates (the CUDA kernel csrc/greedy_nms.cu on
 the card, its plain version on the CPU), with the candidates and kept boxes
 per image, since the kernel's walk takes one step per kept box. On the card
 it also reads the kernel's own device time with torch.profiler
 (`greedy_nms_kernel_device_ms`; absent on the CPU).
-
-The JAX tool's other variants are not in the port and are not timed: the
-"approx" selector (lax.approx_max_k) and a fixed fixpoint bound
-(nms_iters=16) raise in ops/nms.py, so the `approx_*` and `*_iters16_ms`
-keys are absent.
 
 Protocol: utils/profiler.timed_scan (K chained steps in one timed call; each
 step shifts the decode's x centers in place by 1e-6 px times the step count,
@@ -78,8 +81,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     from yololp_tpu_torch.ops.cuda_nms import greedy_nms_mask
-    from yololp_tpu_torch.ops.nms import (_split_scores, _sum_in_order, non_max_suppression,
-                                          select_candidates)
+    from yololp_tpu_torch.ops.nms import (SELECTORS, _split_scores, _sum_in_order,
+                                          non_max_suppression, select_candidates)
 
     b, a, steps = args.batch_size, args.anchors, args.iters
     k = min(args.pre_nms_topk, a)
@@ -98,11 +101,14 @@ def main(argv=None):
 
         return timed_scan(prog, steps, p0, torch.zeros((), device=dev)) * 1e3
 
-    def nms(p_):
-        return non_max_suppression(p_, conf_thres=args.conf_thres, iou_thres=args.iou_thres,
-                                   max_det=300, pre_nms_topk=k)
+    def nms(iters):
+        return lambda p_: non_max_suppression(
+            p_, conf_thres=args.conf_thres, iou_thres=args.iou_thres, max_det=300,
+            pre_nms_topk=k, nms_iters=iters)
 
     def candidates(p_):
+        # both selectors: JAX's approx_max_k (taken when K < A) is an exact
+        # sort off the TPU, as ops/nms.py:select_candidates says
         cls = p_[..., 13:] * p_[..., 4:5]
         confs = torch.stack([t.amax(dim=-1) for t in _split_scores(cls)], -1)
         score = _sum_in_order(confs, range(8)) / 8.0
@@ -117,8 +123,13 @@ def main(argv=None):
            "conf_thres": args.conf_thres, "iou_thres": args.iou_thres,
            "candidates_per_image": _spread((score_k > 0).sum(1)),
            "kept_per_image": _spread(keep.sum(1))}
-    res["topk_iters0_ms"] = bench(nms, x)
-    res["candidate_only_topk_ms"] = bench(candidates, x)
+    # one program for both selectors off the TPU: one measurement each
+    res["approx_timed_as"] = "topk"
+    for iters in (0, 16):
+        ms = bench(nms(iters), x)
+        res.update({f"{sel}_iters{iters}_ms": ms for sel in SELECTORS})
+    ms = bench(candidates, x)
+    res.update({f"candidate_only_{sel}_ms": ms for sel in SELECTORS})
     # the keep-mask alone: the chain shifts the candidates' boxes instead
     res["greedy_nms_mask_ms"] = bench(lambda bx: (greedy_nms_mask(bx, score_k, args.iou_thres),),
                                       box_k.clone())

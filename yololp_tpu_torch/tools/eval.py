@@ -22,11 +22,6 @@ import json
 import os
 import os.path as osp
 
-# flags of the JAX CLI that the port refuses, and why
-NOT_PORTED = {"approx": "--nms-selector approx: there is no Hopper counterpart of "
-                        "lax.approx_max_k (ROADMAP A.5); use topk"}
-
-
 def get_args_parser():
     p = argparse.ArgumentParser("YOLO-LP evaluation (PyTorch/CUDA)", add_help=True)
     p.add_argument("--data", type=str, default=None, help="dataset yaml")
@@ -135,8 +130,6 @@ def print_report(results, speed):
 def main(args=None):
     parser = get_args_parser()
     args = parser.parse_args(args)
-    if args.nms_selector == "approx":
-        parser.error(NOT_PORTED["approx"])
     if args.int8 and not args.calib_pt:
         parser.error("--int8 requires --calib-pt")
     args = apply_eval_params(args)

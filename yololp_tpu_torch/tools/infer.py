@@ -31,7 +31,7 @@ def get_args_parser():
     parser.add_argument("--conf-thres", type=float, default=0.4)
     parser.add_argument("--iou-thres", type=float, default=0.45)
     parser.add_argument("--max-det", type=int, default=1000)
-    parser.add_argument("--nms-selector", default="topk", choices=["topk"])
+    parser.add_argument("--nms-selector", default="topk", choices=["topk", "approx"])
     parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
     parser.add_argument("--save-txt", action="store_true", default=True)
     parser.add_argument("--not-save-img", action="store_true")

@@ -7,7 +7,9 @@ default plan of `build_int8_model`), plus the NMS alone on synthetic
 logits. PyTorch runs eagerly, so a section is cut by calling the model's
 `backbone`, `neck` and `detect` in turn and stopping: nothing downstream
 runs. --stages adds cumulative cuts through the backbone's stages. The NMS
-runs only its exact keep-mask (the port has no fixed-iteration bound).
+alone runs twice, as in the JAX tool: with its exact keep-mask
+(nms_iters=0, the CUDA kernel on the card) and with the fixed bound of 16
+update steps (nms_iters=16).
 
 Protocol: utils/profiler.timed_scan (K chained steps in one timed call;
 each step's input is offset by 1e-3 times the step count). Prints one line
@@ -82,9 +84,10 @@ def main(argv=None):
         models["int8"] = build_int8_model(inferer.model, load_amax(args.calib_pt),
                                           quantize_kernels_int8(inferer.variables, device=dev))
 
-    def nms(pred):
+    def nms(pred, nms_iters=0):
         return non_max_suppression(pred.float(), conf_thres=args.conf_thres,
-                                   iou_thres=args.iou_thres, max_det=300, pre_nms_topk=256)
+                                   iou_thres=args.iou_thres, max_det=300, pre_nms_topk=256,
+                                   nms_iters=nms_iters)
 
     rows = []
 
@@ -117,11 +120,12 @@ def main(argv=None):
         bench(lambda x, m=m: m(x), f"full fwd {tag}", x0, step)
         bench(lambda x, m=m: nms(m(x)), f"e2e fwd+nms {tag}", x0, step)
 
-    # NMS alone on synthetic logits
+    # NMS alone on synthetic logits: the exact keep-mask, then the fixed bound
     n_anchors = (s // 8) ** 2 + (s // 16) ** 2 + (s // 32) ** 2
     pred = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (b, n_anchors, 290))
                             .astype(np.float32)).to(dev)
-    bench(nms, "nms alone", pred, 1e-6)
+    for it in (0, 16):
+        bench(lambda p_, it=it: nms(p_, it), f"nms alone (nms_iters={it})", pred, 1e-6)
     out = {"device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
            "batch": b, "img_size": s, "iters": k, "rows": rows}
     print(json.dumps(out))

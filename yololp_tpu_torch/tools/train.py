@@ -16,6 +16,12 @@ Examples:
   torchrun --nproc_per_node 4 -m yololp_tpu_torch.tools.train --conf-file yololps ...
   python -m yololp_tpu_torch.tools.train --conf-file yololps ...  # spawns one rank per card
 
+  # launched as the JAX CLI is: one process a host, here host 1 of 2; with
+  # more than one card, each host spawns one rank per card (every host must
+  # see as many cards)
+  COORDINATOR_ADDRESS=host0:29500 NUM_PROCESSES=2 PROCESS_ID=1 \\
+      python -m yololp_tpu_torch.tools.train --conf-file yololps ...
+
 `--device cuda` (the default) or `cpu`. Under torchrun (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT in the environment) each process joins
 the group (NCCL on cards, gloo with --device cpu) and takes the card of its
@@ -57,8 +63,8 @@ def get_args_parser():
     p.add_argument("--resume", nargs="?", const=True, default=False)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--approx-topk", action="store_true",
-                   help="accepted for the JAX CLI's sake: the port's assigners always "
-                        "take the exact top-k (a stable sort)")
+                   help="the assigners' approx_max_k selection: the exact top-k (a stable "
+                        "sort), which is what XLA computes for it off the TPU")
     p.add_argument("--assigner", choices=["atss", "tal", "atss_tal"], default=None,
                    help="override the label assigner: atss, tal, or atss_tal (ATSS "
                         "warmup epochs, then task-aligned)")
@@ -67,7 +73,9 @@ def get_args_parser():
     p.add_argument("--data-parallel", action="store_true", default=True,
                    help="with more than one visible card, no torchrun environment and "
                         "--device cuda, spawn one process per card (the batch is split "
-                        "over them); --device cuda:N trains on card N alone")
+                        "over them; launched as the JAX CLI is, one process a host, each "
+                        "host spawns its cards' ranks, and every host must see as many "
+                        "cards); --device cuda:N trains on card N alone")
     p.add_argument("--cache-device", action="store_true",
                    help="stage the whole dataset on the device and gather batches there "
                         "(no-augmentation runs only)")
@@ -98,10 +106,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawned_rank(i: int, argv, world: int, port: int):
-    """One rank of a --data-parallel spawn: torchrun's environment, then main."""
-    os.environ.update(RANK=str(i), LOCAL_RANK=str(i), WORLD_SIZE=str(world),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+def _spawned_rank(i: int, argv, first_rank: int, world: int, addr: str, port: int):
+    """Rank first_rank + i of a --data-parallel spawn, on card i of its host:
+    torchrun's environment in place of the JAX variables, then main."""
+    from yololp_tpu_torch.parallel.mesh import JAX_VARS
+
+    for k in JAX_VARS:
+        os.environ.pop(k, None)
+    os.environ.update(RANK=str(first_rank + i), LOCAL_RANK=str(i), WORLD_SIZE=str(world),
+                      MASTER_ADDR=addr, MASTER_PORT=str(port))
     main(argv)
 
 
@@ -113,22 +126,35 @@ def main(args=None):
         parser.error("--data-path or --synthetic-data required")
     import torch
 
-    from yololp_tpu_torch.parallel.mesh import barrier, initialize_distributed, local_rank
+    from yololp_tpu_torch.parallel.mesh import barrier, initialize_distributed, jax_rendezvous
     from yololp_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)  # no card and not --device cpu: raise before any work
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     if (args.data_parallel and "WORLD_SIZE" not in os.environ and dev.type == "cuda"
             and dev.index is None and n_cards > 1):
-        if args.batch_size % n_cards:
-            parser.error(f"{n_cards} cards must divide the global --batch-size {args.batch_size}")
-        torch.multiprocessing.spawn(_spawned_rank, args=(argv, n_cards, _free_port()),
+        # one process a card. Launched as the JAX CLI is (COORDINATOR_ADDRESS,
+        # NUM_PROCESSES hosts, this host's PROCESS_ID), host h's cards are the
+        # ranks h * n_cards + i of NUM_PROCESSES * n_cards, met at the coordinator
+        rdv = jax_rendezvous()
+        if rdv is None:
+            addr, port, hosts, host = "localhost", _free_port(), 1, 0
+        else:
+            coordinator, hosts, host = rdv
+            addr, _, port = coordinator.rpartition(":")
+        world = hosts * n_cards
+        if args.batch_size % world:
+            parser.error(f"{world} cards must divide the global --batch-size {args.batch_size}")
+        torch.multiprocessing.spawn(_spawned_rank,
+                                    args=(argv, host * n_cards, world, addr, int(port)),
                                     nprocs=n_cards)
         return None
-    # under torchrun: join the group before anything else
+    # under torchrun, or launched as the JAX CLI is on one card or the CPU:
+    # join the group before anything else; with NCCL the group's join has set
+    # this process's card
     joined = initialize_distributed("gloo" if dev.type == "cpu" else "nccl")
     if joined and dev.type == "cuda" and dev.index is None:
-        args.device = f"cuda:{local_rank()}"
+        args.device = f"cuda:{torch.cuda.current_device()}"
     try:
         best = _train(args)
         barrier()
