@@ -217,7 +217,24 @@ toolkit. Phases, each of which raises on failure:
      CPU and unequal to the exact mask; then bench_nms's grid (nms_iters
      0 and 16, and the candidate step alone; off the TPU "approx" runs the
      same program as "topk", which the tool times once for both keys) at
-     B = 32, K = 512.
+     B = 32, K = 512;
+  25. the port's bench (yololp_tpu_torch/bench.py), its legs called in-process
+     at full size on the seeded yololps that the bench's main() builds:
+     bench_inference at 640 b128 (20 chained steps, then the per-batch-synced
+     number), bench_int8 at b128 (calibrated, the conv plan built once with
+     stage handoffs), bench_train_step at b32 (10 steps) and b128 (6), and
+     bench_native_runner on phase 21's b32 packages (no second AOTInductor
+     compile). Every leg returns a positive finite number; the launch
+     counts, set to 0 just before each leg and read just after, are one
+     greedy_nms a chained step (and one a synced batch) and as many int8_conv
+     a step as phase 21's eager conv plan. Then the legs' programs once
+     more on one staged b128 batch: the e2e program's and the timed int8
+     plan's detections equal the plain CPU NMS on their own decode; the int8
+     plan run again with every int8 conv in the plain version gives its
+     decode (boxes bit for bit, scores within EXPORT_SCORE_ATOL); and the e2e
+     program on phase 4's weights at phase 4's gate (2K anchors of every
+     image pass, so greedy_nms walks a full K = 256 in one launch) equals the
+     plain CPU NMS on its decode. The bench's line of the numbers is printed.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -230,6 +247,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2707,12 +2725,12 @@ def _nms_custom_op(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float) 
     return cuda_nms.greedy_nms_mask_cuda(boxes, scores, iou_thres)
 
 
-def phase_export(results, card, dev, inferer, ctx8, batch, runner_build):
+def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
     """21. Export on the card: the bf16 and int8 end2end programs of
     yololp_tpu_torch.export (plus their decode), as a .pt2 saved and loaded,
-    as an AOTInductor package, and under the C++ runner."""
-    import tempfile
-
+    as an AOTInductor package, and under the C++ runner. The artifacts are
+    written into the directory `tmp`, where phase 25's runner leg finds the
+    packages."""
     from yololp_tpu_torch.deploy import aoti_cpp
     from yololp_tpu_torch.export.export import build_export_fn, compile_aoti, export_program
     from yololp_tpu_torch.ops import cuda_conv, cuda_nms
@@ -2729,108 +2747,107 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build):
                  lambda: inferer._run(staged)),
                 ("int8", inferer8.model, inferer8.variables, amax, conf8, lambda: run8(staged))]
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for label, model, variables, calib, conf, eager in flavours:
-            kw = dict(conf_thres=conf, iou_thres=0.45, max_det=1000)
-            t0 = time.perf_counter()
-            prog = export_program(WithDecode(build_export_fn(model, variables, calib_amax=calib,
-                                                             **kw)), BATCH, IMG, dev)
-            export_s = time.perf_counter() - t0
-            nodes = [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
-            n_nms = sum("yololp_torch.greedy_nms_mask" in t for t in nodes)
-            n_conv = sum("yololp_torch.int8_conv" in t for t in nodes)
-            want, (eager_nms, eager_conv) = counted(eager, cuda_nms, cuda_conv)
+    for label, model, variables, calib, conf, eager in flavours:
+        kw = dict(conf_thres=conf, iou_thres=0.45, max_det=1000)
+        t0 = time.perf_counter()
+        prog = export_program(WithDecode(build_export_fn(model, variables, calib_amax=calib,
+                                                         **kw)), BATCH, IMG, dev)
+        export_s = time.perf_counter() - t0
+        nodes = [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
+        n_nms = sum("yololp_torch.greedy_nms_mask" in t for t in nodes)
+        n_conv = sum("yololp_torch.int8_conv" in t for t in nodes)
+        want, (eager_nms, eager_conv) = counted(eager, cuda_nms, cuda_conv)
 
-            path = os.path.join(tmp, f"{label}.pt2")
-            torch.export.save(prog, path)
-            loaded = torch.no_grad()(torch.export.load(path).module())
-            got, (nms_n, conv_n) = counted(lambda: loaded(staged), cuda_nms, cuda_conv)
-            kept = nms_on_own_decode(got, kw, f"{label} .pt2")
-            if (nms_n, conv_n) != (1, eager_conv) or (n_nms, n_conv) != (1, eager_conv):
-                raise AssertionError(f"{label} .pt2: greedy_nms {nms_n}, int8_conv {conv_n} "
-                                     f"launches a batch, {n_nms} / {n_conv} nodes; eager "
-                                     f"{eager_nms} / {eager_conv}")
-            for name, a, b in zip(("det", "valid", "num"), got, want):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"{label} .pt2: {name} != the eager run's")
-            print(f"[{card}] phase 21 {label}: torch.export in {export_s:.1f} s, "
-                  f"{n_nms} greedy_nms_mask and {n_conv} int8_conv nodes; the .pt2 saved and "
-                  f"loaded: greedy_nms {nms_n}, int8_conv {conv_n} launches a batch (eager "
-                  f"{eager_nms} / {eager_conv}); det/valid/num == plain CPU NMS on its own "
-                  f"decode (kept {kept[0]}..{kept[1]}) and == the eager run, bit for bit",
-                  flush=True)
+        path = os.path.join(tmp, f"{label}.pt2")
+        torch.export.save(prog, path)
+        loaded = torch.no_grad()(torch.export.load(path).module())
+        got, (nms_n, conv_n) = counted(lambda: loaded(staged), cuda_nms, cuda_conv)
+        kept = nms_on_own_decode(got, kw, f"{label} .pt2")
+        if (nms_n, conv_n) != (1, eager_conv) or (n_nms, n_conv) != (1, eager_conv):
+            raise AssertionError(f"{label} .pt2: greedy_nms {nms_n}, int8_conv {conv_n} "
+                                 f"launches a batch, {n_nms} / {n_conv} nodes; eager "
+                                 f"{eager_nms} / {eager_conv}")
+        for name, a, b in zip(("det", "valid", "num"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} .pt2: {name} != the eager run's")
+        print(f"[{card}] phase 21 {label}: torch.export in {export_s:.1f} s, "
+              f"{n_nms} greedy_nms_mask and {n_conv} int8_conv nodes; the .pt2 saved and "
+              f"loaded: greedy_nms {nms_n}, int8_conv {conv_n} launches a batch (eager "
+              f"{eager_nms} / {eager_conv}); det/valid/num == plain CPU NMS on its own "
+              f"decode (kept {kept[0]}..{kept[1]}) and == the eager run, bit for bit",
+              flush=True)
 
-            aoti_path, compile_s = compile_aoti(prog, os.path.join(tmp, f"{label}.aoti.pt2"))
-            pkg = torch._inductor.aoti_load_package(aoti_path)
-            got_a, (nms_a, conv_a) = counted(lambda: pkg(staged), cuda_nms, cuda_conv)
-            kept = nms_on_own_decode(got_a, kw, f"{label} AOTInductor")
-            if (nms_a, conv_a) != (1, eager_conv):
-                raise AssertionError(f"{label} AOTInductor: greedy_nms {nms_a}, int8_conv "
-                                     f"{conv_a} launches a batch; eager {eager_nms} / {eager_conv}")
-            # eager's decode: the .pt2's, which replays eager's ops bit for bit
-            dec_a, dec_e = got_a[3].float().cpu(), got[3].float().cpu()
-            err_px = float((dec_a[..., :13] - dec_e[..., :13]).abs().max())
-            err_score = float((dec_a[..., 13:] - dec_e[..., 13:]).abs().max())
-            if calib is None and not (
-                    torch.allclose(dec_a[..., :13], dec_e[..., :13], rtol=EXPORT_RTOL,
-                                   atol=EXPORT_ATOL_PX)
-                    and torch.allclose(dec_a[..., 13:], dec_e[..., 13:], rtol=0,
-                                       atol=EXPORT_ATOL_SCORE)):
-                raise AssertionError(f"{label} AOTInductor decode vs eager: {err_px} px, "
-                                     f"{err_score} score, beyond the bf16 tolerance")
-            same = [torch.equal(a, b) for a, b in zip(got_a[:3], want)]
-            rows_differ = int((got_a[0] != want[0]).any(-1).sum())
-            if calib is not None and not (err_px == 0 and err_score <= EXPORT_SCORE_ATOL
-                                          and all(same[1:])):
-                raise AssertionError(f"int8 AOTInductor vs the eager conv plan: decode {err_px} "
-                                     f"px, {err_score} score apart; valid, num equal: "
-                                     f"{same[1:]}")
-            print(f"[{card}] phase 21 {label}: AOTInductor package compiled in {compile_s:.1f} s; "
-                  f"greedy_nms {nms_a}, int8_conv {conv_a} launches a batch from inside it; "
-                  f"det/valid/num == plain CPU NMS on its own decode (kept {kept[0]}..{kept[1]}); "
-                  f"its decode vs eager's max |diff| {err_px:.4g} px, {err_score:.4g} score "
-                  f"(bf16 tolerance rtol {EXPORT_RTOL} + {EXPORT_ATOL_PX} px, "
-                  f"{EXPORT_ATOL_SCORE} score; int8: 0 px, {EXPORT_SCORE_ATOL:.3g} score); "
-                  f"det/valid/num equal to eager's: {same} ({rows_differ} detection rows "
-                  f"differ)", flush=True)
-            profile = profile_batch(lambda: pkg(staged), card, label=f"{label} AOTInductor")
-            for kernel in ("greedy_nms_kernel",) + (("int8_conv_kernel",) if calib else ()):
-                if not any(kernel in k for k in profile["by_name"]):
-                    raise AssertionError(f"{label} AOTInductor: {kernel} missing from the profile")
+        aoti_path, compile_s = compile_aoti(prog, os.path.join(tmp, f"{label}.aoti.pt2"))
+        pkg = torch._inductor.aoti_load_package(aoti_path)
+        got_a, (nms_a, conv_a) = counted(lambda: pkg(staged), cuda_nms, cuda_conv)
+        kept = nms_on_own_decode(got_a, kw, f"{label} AOTInductor")
+        if (nms_a, conv_a) != (1, eager_conv):
+            raise AssertionError(f"{label} AOTInductor: greedy_nms {nms_a}, int8_conv "
+                                 f"{conv_a} launches a batch; eager {eager_nms} / {eager_conv}")
+        # eager's decode: the .pt2's, which replays eager's ops bit for bit
+        dec_a, dec_e = got_a[3].float().cpu(), got[3].float().cpu()
+        err_px = float((dec_a[..., :13] - dec_e[..., :13]).abs().max())
+        err_score = float((dec_a[..., 13:] - dec_e[..., 13:]).abs().max())
+        if calib is None and not (
+                torch.allclose(dec_a[..., :13], dec_e[..., :13], rtol=EXPORT_RTOL,
+                               atol=EXPORT_ATOL_PX)
+                and torch.allclose(dec_a[..., 13:], dec_e[..., 13:], rtol=0,
+                                   atol=EXPORT_ATOL_SCORE)):
+            raise AssertionError(f"{label} AOTInductor decode vs eager: {err_px} px, "
+                                 f"{err_score} score, beyond the bf16 tolerance")
+        same = [torch.equal(a, b) for a, b in zip(got_a[:3], want)]
+        rows_differ = int((got_a[0] != want[0]).any(-1).sum())
+        if calib is not None and not (err_px == 0 and err_score <= EXPORT_SCORE_ATOL
+                                      and all(same[1:])):
+            raise AssertionError(f"int8 AOTInductor vs the eager conv plan: decode {err_px} "
+                                 f"px, {err_score} score apart; valid, num equal: "
+                                 f"{same[1:]}")
+        print(f"[{card}] phase 21 {label}: AOTInductor package compiled in {compile_s:.1f} s; "
+              f"greedy_nms {nms_a}, int8_conv {conv_a} launches a batch from inside it; "
+              f"det/valid/num == plain CPU NMS on its own decode (kept {kept[0]}..{kept[1]}); "
+              f"its decode vs eager's max |diff| {err_px:.4g} px, {err_score:.4g} score "
+              f"(bf16 tolerance rtol {EXPORT_RTOL} + {EXPORT_ATOL_PX} px, "
+              f"{EXPORT_ATOL_SCORE} score; int8: 0 px, {EXPORT_SCORE_ATOL:.3g} score); "
+              f"det/valid/num equal to eager's: {same} ({rows_differ} detection rows "
+              f"differ)", flush=True)
+        profile = profile_batch(lambda: pkg(staged), card, label=f"{label} AOTInductor")
+        for kernel in ("greedy_nms_kernel",) + (("int8_conv_kernel",) if calib else ()):
+            if not any(kernel in k for k in profile["by_name"]):
+                raise AssertionError(f"{label} AOTInductor: {kernel} missing from the profile")
 
-            times = {}
-            for name, fn in (("eager", eager), ("pt2", lambda: loaded(staged)),
-                             ("aoti", lambda: pkg(staged))):
-                for _ in range(3):
-                    fn()
-                ms = float(np.median(cuda_ms(fn, 2)))
-                times[name] = dict(ms=ms, img_s=BATCH * 1e3 / ms)
-            binary, build_s = runner_build.result()
-            py_num = pkg(lcg)[2].cpu().tolist()
-            rec = aoti_cpp.bench(binary, aoti_path, RUNNER_ITERS, BATCH, IMG)
-            want_launches = {"greedy_nms": 1.0, "int8_conv": float(eager_conv)}
-            if rec["first_num"] != py_num or rec["launches_per_batch"] != want_launches:
-                raise AssertionError(f"{label} runner: num {rec['first_num']} (Python package "
-                                     f"{py_num}), launches a batch {rec['launches_per_batch']} "
-                                     f"(want {want_launches})")
-            times["runner_sync"] = dict(ms=rec["sync"]["ms_per_batch"],
-                                        img_s=rec["sync"]["images_per_sec"])
-            times["runner_pipelined"] = dict(ms=rec["pipelined"]["ms_per_batch"],
-                                             img_s=rec["pipelined"]["images_per_sec"])
-            print(f"[{card}] phase 21 {label}: C++ runner (built in {build_s:.1f} s beside phases "
-                  f"3-20) --bench {RUNNER_ITERS} --batch {BATCH}: "
-                  f"first LCG batch's num == the Python package's ({min(py_num)}..{max(py_num)}), "
-                  f"launches a batch {rec['launches_per_batch']}")
-            print(f"[{card}] phase 21 {label} img/s at batch {BATCH} (uint8 on the card in, "
-                  f"dets out; CUDA events, median of 5 windows of 2 batches; the runner by its "
-                  f"host clock): " + ", ".join(f"{k} {v['img_s']:.1f} ({v['ms']:.3f} ms)"
-                                               for k, v in times.items()), flush=True)
-            out[label] = dict(export_s=export_s, compile_s=compile_s, nodes=[n_nms, n_conv],
-                              launches_pt2=[nms_n, conv_n], launches_aoti=[nms_a, conv_a],
-                              launches_eager=[eager_nms, eager_conv], decode_err_px=err_px,
-                              decode_err_score=err_score, equal_to_eager=same,
-                              det_rows_differ=rows_differ, times=times,
-                              runner=rec, profile=profile)
+        times = {}
+        for name, fn in (("eager", eager), ("pt2", lambda: loaded(staged)),
+                         ("aoti", lambda: pkg(staged))):
+            for _ in range(3):
+                fn()
+            ms = float(np.median(cuda_ms(fn, 2)))
+            times[name] = dict(ms=ms, img_s=BATCH * 1e3 / ms)
+        binary, build_s = runner_build.result()
+        py_num = pkg(lcg)[2].cpu().tolist()
+        rec = aoti_cpp.bench(binary, aoti_path, RUNNER_ITERS, BATCH, IMG)
+        want_launches = {"greedy_nms": 1.0, "int8_conv": float(eager_conv)}
+        if rec["first_num"] != py_num or rec["launches_per_batch"] != want_launches:
+            raise AssertionError(f"{label} runner: num {rec['first_num']} (Python package "
+                                 f"{py_num}), launches a batch {rec['launches_per_batch']} "
+                                 f"(want {want_launches})")
+        times["runner_sync"] = dict(ms=rec["sync"]["ms_per_batch"],
+                                    img_s=rec["sync"]["images_per_sec"])
+        times["runner_pipelined"] = dict(ms=rec["pipelined"]["ms_per_batch"],
+                                         img_s=rec["pipelined"]["images_per_sec"])
+        print(f"[{card}] phase 21 {label}: C++ runner (built in {build_s:.1f} s beside phases "
+              f"3-20) --bench {RUNNER_ITERS} --batch {BATCH}: "
+              f"first LCG batch's num == the Python package's ({min(py_num)}..{max(py_num)}), "
+              f"launches a batch {rec['launches_per_batch']}")
+        print(f"[{card}] phase 21 {label} img/s at batch {BATCH} (uint8 on the card in, "
+              f"dets out; CUDA events, median of 5 windows of 2 batches; the runner by its "
+              f"host clock): " + ", ".join(f"{k} {v['img_s']:.1f} ({v['ms']:.3f} ms)"
+                                           for k, v in times.items()), flush=True)
+        out[label] = dict(export_s=export_s, compile_s=compile_s, nodes=[n_nms, n_conv],
+                          launches_pt2=[nms_n, conv_n], launches_aoti=[nms_a, conv_a],
+                          launches_eager=[eager_nms, eager_conv], decode_err_px=err_px,
+                          decode_err_score=err_score, equal_to_eager=same,
+                          det_rows_differ=rows_differ, times=times,
+                          runner=rec, profile=profile, aoti_path=aoti_path)
 
     # host cost of an op dispatch against a direct call of the launcher
     pred = inferer.predict(staged)
@@ -3431,6 +3448,191 @@ def phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, c
     return out
 
 
+# ---------------- phase 25: the port's bench ----------------
+
+BENCH_BATCH, BENCH_ITERS = 128, 20  # the bench's inference legs (its main()'s)
+BENCH_TRAIN = ((32, 10), (128, 6))  # (batch, chained steps) of its train legs
+
+
+def positive(what, x):
+    if not (np.isfinite(x) and x > 0):
+        raise AssertionError(f"{what}: {x} is not a positive number")
+    return x
+
+
+class RecordedNMS:
+    """Within the block, `module.non_max_suppression` records each call's
+    decode, keywords and (det, valid, num) in `calls`."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __enter__(self):
+        self.real = real = self.module.non_max_suppression
+
+        def spy(pred, **kw):
+            out = real(pred, **kw)
+            self.calls.append((pred, kw, out))
+            return out
+
+        self.module.non_max_suppression = spy
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.non_max_suppression = self.real
+
+
+def own_decode_check(module, fwd, x, what):
+    """One call of `fwd` (a leg's program, whose NMS lives in `module`) on
+    `x`: its detections equal the plain CPU NMS on its own decode; returns
+    (decode, the NMS's keywords, the kept range)."""
+    with RecordedNMS(module) as calls:
+        fwd(x)
+    torch.cuda.synchronize()
+    if len(calls) != 1:
+        raise AssertionError(f"{what}: {len(calls)} NMS calls, want 1")
+    pred, kw, out = calls[0]
+    return pred, kw, nms_on_own_decode((*out, pred), kw, what)
+
+
+def int8_decode_vs_plain(run, x, want_pred, what):
+    """The int8 plan `run` again on `x` with every int8 conv in the plain
+    version (exact fp64 accumulator, the same epilogue) on the card: its
+    decode's boxes and corners equal `want_pred`'s bit for bit and its
+    scores within EXPORT_SCORE_ATOL (phase 21's int8 tolerance). Returns
+    (max |diff| px, max |diff| score)."""
+    from yololp_tpu_torch.ops import cuda_conv
+    from yololp_tpu_torch.quant import int8_infer
+
+    kernel = cuda_conv.int8_conv
+    cuda_conv.int8_conv = cuda_conv.int8_conv_plain
+    cuda_conv.launches = 0
+    try:
+        plain_pred = own_decode_check(int8_infer, run, x, f"{what}, plain int8_conv")[0]
+    finally:
+        cuda_conv.int8_conv = kernel
+    if cuda_conv.launches:
+        raise AssertionError(f"{what}: the plain run launched int8_conv {cuda_conv.launches}x")
+    err_px = float((plain_pred[..., :13] - want_pred[..., :13]).abs().max())
+    err_score = float((plain_pred[..., 13:] - want_pred[..., 13:]).abs().max())
+    if not (err_px == 0 and err_score <= EXPORT_SCORE_ATOL):
+        raise AssertionError(f"{what}: decode with the kernel vs the plain version: {err_px} px, "
+                             f"{err_score} score (want 0 px, {EXPORT_SCORE_ATOL:.3g} score)")
+    return err_px, err_score
+
+
+def phase_bench(results, card, dev, export, weights, cfg):
+    """25. The port's bench on the card (see the module docstring)."""
+    from yololp_tpu_torch import bench
+    from yololp_tpu_torch.core.inferer import Inferer, deploy_decode
+    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops.nms import select_candidates
+    from yololp_tpu_torch.quant import int8_infer
+
+    t_phase = time.perf_counter()
+    b, k = BENCH_BATCH, BENCH_ITERS
+    inferer = Inferer(".", None, "yololps", img_size=IMG, half=True, device=dev)
+    model, state = inferer.model, inferer.variables
+    line, launches = {}, {}
+
+    (ips, ips_sync), (n_nms,) = counted(
+        lambda: bench.bench_inference(model, b, IMG, iters=k, device=dev), cuda_nms)
+    # a warm and a timed call of k chained steps, then 1 + 5 synced batches
+    if n_nms != 2 * k + 6:
+        raise AssertionError(f"bench_inference: {n_nms} greedy_nms launches, want {2 * k + 6}")
+    line["value"] = positive("bench_inference", ips)
+    line["per_batch_sync_images_per_sec"] = positive("bench_inference sync", ips_sync)
+    launches["inference"] = dict(greedy_nms=n_nms)
+    # the legs' programs once more on a staged batch of theirs (bench._staged),
+    # held to the plain versions: not counted above
+    x = bench._staged(np.random.default_rng(0), b, IMG, dev)
+    checks = dict(bf16=own_decode_check(bench, torch.inference_mode()(bench.e2e_fwd(model, dev)),
+                                        x, f"bench e2e program b{b}")[2])
+
+    plans = []
+    real = int8_infer.make_int8_infer_fn
+
+    def spy(*a, **kw):
+        run = real(*a, **kw)
+        plans.append((kw, run.int8_model, run))
+        return run
+
+    int8_infer.make_int8_infer_fn = spy
+    try:
+        ips8, (n_nms8, n_conv8) = counted(
+            lambda: bench.bench_int8(model, state, b, IMG, iters=k, device=dev), cuda_nms,
+            cuda_conv)
+    finally:
+        int8_infer.make_int8_infer_fn = real
+    per_step = export["int8"]["launches_eager"][1]
+    if len(plans) != 1 or plans[0][0].get("stage_handoffs") is not True \
+            or plans[0][0].get("conv_impl") != "conv" \
+            or not any(isinstance(m, int8_infer.Int8Handoff) for m in plans[0][1].modules()):
+        raise AssertionError(f"bench_int8 built {len(plans)} plans: "
+                             f"{[p[0] for p in plans]}; want one conv plan with stage handoffs")
+    if (n_nms8, n_conv8) != (2 * k, 2 * k * per_step):
+        raise AssertionError(f"bench_int8: greedy_nms {n_nms8}, int8_conv {n_conv8} launches; "
+                             f"want {2 * k} and {2 * k * per_step}")
+    line["int8_images_per_sec"] = positive("bench_int8", ips8)
+    launches["int8"] = dict(greedy_nms=n_nms8, int8_conv=n_conv8, int8_conv_per_step=per_step)
+    run8 = plans[0][2]
+    pred8, _, checks["int8"] = own_decode_check(int8_infer, run8, x, f"bench int8 plan b{b}")
+    checks["int8_vs_plain"] = int8_decode_vs_plain(run8, x, pred8, f"bench int8 plan b{b}")
+    del inferer, model, state, plans, run8, pred8
+    torch.cuda.empty_cache()
+
+    # the e2e program at b128 on phase 4's weights and phase 4's gate (2K
+    # anchors of every image pass it), so that the kernel walks a full K
+    model4 = Inferer(".", weights, cfg, img_size=IMG, half=True, device=dev).model
+    with torch.inference_mode():
+        gate = full_k_gate(deploy_decode(model4, x, dev, torch.bfloat16).float())
+    full_k = dict(bench.NMS_KW, conf_thres=gate)
+    (pred_k, _, kept), (n_k,) = counted(
+        lambda: own_decode_check(bench, torch.inference_mode()(bench.e2e_fwd(model4, dev, full_k)),
+                                 x, f"bench e2e program b{b}, full K"), cuda_nms)
+    topk = full_k["pre_nms_topk"]
+    if n_k != 1 or not bool((select_candidates(pred_k, gate, topk)[1] > 0).all()):
+        raise AssertionError(f"bench e2e program at gate {gate}: {n_k} greedy_nms launches, or "
+                             f"fewer than {topk} candidates in an image")
+    checks["bf16_full_k"] = dict(conf_thres=gate, k=topk, kept=kept)
+    del model4, pred_k, x
+    torch.cuda.empty_cache()
+
+    peaks = {}
+    for tb, ti in BENCH_TRAIN:
+        torch.cuda.reset_peak_memory_stats(dev)
+        rate = positive(f"bench_train_step b{tb}",
+                        bench.bench_train_step(batch=tb, iters=ti, device=dev))
+        peaks[tb] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        line[f"train_images_per_sec_b{tb}"] = rate
+        line[f"train_ms_per_step_b{tb}"] = tb * 1e3 / rate
+        torch.cuda.empty_cache()
+
+    for label in ("int8", "bf16"):
+        rec = bench.bench_native_runner(export[label]["aoti_path"], batch=BATCH, size=IMG)
+        line[f"native_{label}_images_per_sec"] = positive(f"runner {label}",
+                                                          rec["images_per_sec"])
+        line[f"native_{label}_sync_images_per_sec"] = positive(f"runner {label} sync",
+                                                               rec["sync_images_per_sec"])
+    print(f"[{card}] phase 25 bench legs: inference b{b} {k} chained steps (greedy_nms "
+          f"{n_nms} launches: one a step, 6 synced), int8 conv plan with stage handoffs built "
+          f"once (greedy_nms {n_nms8}, int8_conv {n_conv8} = {per_step} a step), train "
+          + ", ".join(f"b{tb} (peak {p:.2f} GiB)" for tb, p in peaks.items())
+          + f", the runner on phase 21's b{BATCH} packages", flush=True)
+    print(f"[{card}] phase 25 programs on one staged b{b} batch: e2e and int8 detections == the "
+          f"plain CPU NMS on their own decode (kept {checks['bf16']}, {checks['int8']} at conf "
+          f"{bench.NMS_KW['conf_thres']}); int8 decode, int8_conv kernel vs plain: "
+          f"{checks['int8_vs_plain'][0]:.3g} px, {checks['int8_vs_plain'][1]:.3g} score; e2e at "
+          f"phase 4's gate {gate:.6f} on its weights: full K = {topk}, one greedy_nms launch, "
+          f"kept {kept}", flush=True)
+    print(json.dumps({"bench": line}))
+    out = dict(line=line, launches=launches, train_peak_gib=peaks, checks=checks,
+               seconds=time.perf_counter() - t_phase)
+    results["bench"] = out
+    print(f"phase 25 in {out['seconds']:.0f} s")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -3597,7 +3799,8 @@ def main():
     print(f"phases 19-20 in {results['multi_gpu_phases_s']:.0f} s")
 
     # 21. export: the .pt2, the AOTInductor packages and the C++ runner
-    export = phase_export(results, card, dev, inferer, ctx8, batch, runner_build)
+    export_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_export_")
+    export = phase_export(results, card, dev, inferer, ctx8, batch, runner_build, export_dir.name)
     runner_pool.shutdown()
 
     # 22. the diagnostics at full width, the scan walls and the encoded-image path
@@ -3608,6 +3811,10 @@ def main():
 
     # 24. NMS's variants: the approx selector on every path, the nms_iters bound
     variants = phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, ctx8)
+
+    # 25. the port's bench: its legs at full size, the runner on phase 21's packages
+    phase_bench(results, card, dev, export, weights, cfg)
+    export_dir.cleanup()
 
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",

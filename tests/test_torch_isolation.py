@@ -111,6 +111,32 @@ def test_measurement_tools_raise_without_a_gpu(tool, monkeypatch):
         main(["--small"] + extra)  # --device defaults to cuda
 
 
+def test_bench_refuses_without_a_gpu(monkeypatch, capsys):
+    """The port's bench prints its error line and exits 3 without a card,
+    even with the device probe turned off; each leg takes the card unless
+    the CPU is asked for."""
+    import json
+
+    from yololp_tpu_torch import bench
+
+    assert "yololp_tpu_torch.bench" in port_modules()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(bench.os, "nice", lambda inc: 0)
+    monkeypatch.setenv("YOLOLP_BENCH_NO_PREFLIGHT", "1")
+    monkeypatch.setenv("YOLOLP_BENCH_NO_PAUSE", "1")
+    with pytest.raises(SystemExit) as exc:
+        bench.main()
+    assert exc.value.code == 3
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and json.loads(lines[0])["value"] is None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.bench_train_step(batch=2, img=64, iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.bench_inference(torch.nn.Identity(), 2, 64, iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.bench_int8(torch.nn.Identity(), {}, 2, 64, iters=1)
+
+
 def test_the_multi_gpu_modules_and_new_tools_are_checked():
     """parallel/ and the train and int8 probes are among the files and
     modules the two import tests above walk."""
