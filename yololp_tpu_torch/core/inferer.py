@@ -4,7 +4,9 @@ The device pipeline: uint8 NHWC batch -> /255 in the compute dtype -> fused
 deploy forward (channels_last) -> 290-column decode -> NMS with the greedy
 keep-mask in csrc/greedy_nms.cu -> (min(max_det, K), 28) detections. The
 host does only decode, letterbox, drawing and text output (cv2 imported
-where an image is read, drawn or written).
+where an image is read, drawn or written). While a profiler records, `_run`
+is the span `infer.run` and the H2D copy with the /255 the span
+`infer.entry` (utils/profiler.py); the model and the NMS add theirs inside.
 
 half=True computes in bf16, as the JAX inferer does by default. half=False is
 fp32 and turns TF32 off for cuDNN convs and matmuls
@@ -32,6 +34,7 @@ from yololp_tpu_torch.utils.checkpoint import load_inference_variables
 from yololp_tpu_torch.utils.config import Config
 from yololp_tpu_torch.utils.convert import load_state_dict_strict
 from yololp_tpu_torch.utils.device import resolve_device
+from yololp_tpu_torch.utils.profiler import annotate
 
 
 @torch.inference_mode()
@@ -39,19 +42,26 @@ def deploy_decode(model, images_u8, device, dtype) -> torch.Tensor:
     """(N, H, W, 3) uint8 -> the (N, A, 290) fp32 decode of the deploy
     `model` on `device`: /255 in `dtype` (as the jitted JAX program divides,
     ops/division.py), then the forward on a channels_last NCHW view."""
-    x = torch.as_tensor(images_u8).to(device, non_blocking=True)
-    return model(unit_pixels(x.permute(0, 3, 1, 2), dtype))
+    with annotate("infer.entry", device):
+        x = torch.as_tensor(images_u8).to(device, non_blocking=True)
+        x = unit_pixels(x.permute(0, 3, 1, 2), dtype)
+    return model(x)
 
 
 class CalcFPS:
+    """Images per second over the last `nsamples` batches: their images over
+    their seconds."""
+
     def __init__(self, nsamples: int = 50):
-        self.framerate = deque(maxlen=nsamples)
+        self.batches = deque(maxlen=nsamples)
 
-    def update(self, duration: float):
-        self.framerate.append(duration)
+    def update(self, duration: float, images: int = 1):
+        """One batch of `images` that took `duration` seconds."""
+        self.batches.append((images, duration))
 
-    def accumulate(self):
-        return np.average(self.framerate) if len(self.framerate) > 1 else 0.0
+    def accumulate(self) -> float:
+        seconds = sum(d for _, d in self.batches)
+        return sum(n for n, _ in self.batches) / seconds if seconds > 0 else 0.0
 
 
 class Inferer:
@@ -108,10 +118,11 @@ class Inferer:
     @torch.inference_mode()
     def _run(self, images_u8):
         """(N, H, W, 3) uint8 -> (det, valid, num) on the device."""
-        pred = self.predict(images_u8)
-        return non_max_suppression(pred, conf_thres=self.conf_thres,
-                                   iou_thres=self.iou_thres, max_det=self.max_det,
-                                   candidate_selector=self.nms_selector)
+        with annotate("infer.run", self.device):
+            pred = self.predict(images_u8)
+            return non_max_suppression(pred, conf_thres=self.conf_thres,
+                                       iou_thres=self.iou_thres, max_det=self.max_det,
+                                       candidate_selector=self.nms_selector)
 
     def warmup(self):
         self._run(np.zeros((1, self.img_size[0], self.img_size[1], 3), np.uint8))
@@ -165,9 +176,7 @@ class Inferer:
         t0 = time.perf_counter()
         det, valid, num = self._run(batch)
         self._sync()
-        dt = time.perf_counter() - t0
-        for _ in range(n):
-            self.fps_calc.update(n / max(dt, 1e-9))
+        self.fps_calc.update(time.perf_counter() - t0, n)
         det = det.float().cpu().numpy()
         valid = valid.cpu().numpy()
         num = num.cpu().numpy()

@@ -24,6 +24,7 @@ from torch import nn
 from yololp_tpu_torch.layers.blocks import ConvBNAct
 from yololp_tpu_torch.ops.anchors import anchor_points_from_shapes
 from yololp_tpu_torch.ops.geometry import dist2bbox, dist2cor
+from yololp_tpu_torch.utils.profiler import annotate
 
 PRIOR_PROB = 1e-2
 
@@ -88,8 +89,11 @@ class Detect(nn.Module):
         return feats, maps
 
     def forward(self, xs):
-        feats, maps = self.pred_maps(xs)
-        return self.decode(maps, feats)
+        dev = xs[0].device
+        with annotate("model.head", dev):
+            feats, maps = self.pred_maps(xs)
+        with annotate("model.decode", dev):
+            return self.decode(maps, feats)
 
     def decode(self, maps, feats=None):
         """Flatten `pred_maps`'s maps H then W, level after level, and decode

@@ -19,6 +19,7 @@ from yololp_tpu_torch.models import efficientrep as _bb
 from yololp_tpu_torch.models import reppan as _nk
 from yololp_tpu_torch.models.effidehead import Detect
 from yololp_tpu_torch.utils.device import resolve_device
+from yololp_tpu_torch.utils.profiler import annotate
 
 BACKBONES = {
     "EfficientRep": _bb.EfficientRep,
@@ -94,7 +95,12 @@ class Model(nn.Module):
         return Model(self.config, self.npro, self.nalp, self.nads, deploy=deploy)
 
     def forward(self, x):
-        return self.detect(self.neck(self.backbone(x)))
+        dev = x.device
+        with annotate("model.backbone", dev):
+            x = self.backbone(x)
+        with annotate("model.neck", dev):
+            x = self.neck(x)
+        return self.detect(x)
 
 
 @torch.no_grad()

@@ -9,7 +9,11 @@ confidences (pro, alp, ad0..ad5), [20:28] per-task argmax class ids (float).
 
 Steps: mean-of-8 confidence gate, top-k of `pre_nms_topk` by a stable
 descending sort (ties go to the lower index, as lax.top_k), the greedy
-keep-mask (a CUDA kernel on the card, ops/cuda_nms.py) and stable compaction.
+keep-mask (a CUDA kernel on the card, ops/cuda_nms.py) and stable compaction,
+each a span of its own (`nms.gate`, `nms.topk`, `nms.keep`, `nms.compact`
+inside `nms`; utils/profiler.py). The counters `nms.gated` and `nms.slots`
+add, per image, the keep step's slots that hold an anchor at or above the
+gate (min(gated anchors, K)) and all its K slots.
 
 The JAX function's two variants are here too. `candidate_selector="approx"`
 names lax.approx_max_k, which on a TPU is a PartialReduce with recall target
@@ -29,6 +33,7 @@ import torch
 
 from yololp_tpu_torch.ops.cuda_nms import greedy_nms_mask
 from yololp_tpu_torch.ops.geometry import xywh2xyxy
+from yololp_tpu_torch.utils.profiler import annotate, count, recording
 
 NPRO, NALP, NADS = 31, 24, 37
 SELECTORS = ("topk", "approx")
@@ -87,27 +92,35 @@ def select_candidates(prediction: torch.Tensor, conf_thres: float, pre_nms_topk:
     gated out) and rest_k (B, K, 24): corners, the 8 task confidences and
     the 8 task class ids (as float) of each candidate.
     """
-    box = xywh2xyxy(prediction[..., :4])
-    obj = prediction[..., 4:5]
-    cls = prediction[..., 13:] * obj  # conf = obj_conf * cls_conf
+    dev = prediction.device
+    with annotate("nms.gate", dev):
+        box = xywh2xyxy(prediction[..., :4])
+        obj = prediction[..., 4:5]
+        cls = prediction[..., 13:] * obj  # conf = obj_conf * cls_conf
 
-    task_scores = _split_scores(cls)
-    confs = torch.stack([t.amax(dim=-1) for t in task_scores], -1)    # (B, A, 8)
-    preds = torch.stack([t.argmax(dim=-1) for t in task_scores], -1)  # first max
+        task_scores = _split_scores(cls)
+        confs = torch.stack([t.amax(dim=-1) for t in task_scores], -1)    # (B, A, 8)
+        preds = torch.stack([t.argmax(dim=-1) for t in task_scores], -1)  # first max
 
-    score = _sum_in_order(confs, range(8)) / 8.0  # NMS ranking score
-    if compat_ad4_bug:
-        # the reference sums ad4 twice and omits ad5
-        mask_conf = _sum_in_order(confs, (0, 1, 2, 3, 4, 5, 6, 6)) / 8.0
-    else:
-        mask_conf = score
-    gated_score = torch.where(mask_conf >= conf_thres, score, torch.zeros_like(score))
+        score = _sum_in_order(confs, range(8)) / 8.0  # NMS ranking score
+        if compat_ad4_bug:
+            # the reference sums ad4 twice and omits ad5
+            mask_conf = _sum_in_order(confs, (0, 1, 2, 3, 4, 5, 6, 6)) / 8.0
+        else:
+            mask_conf = score
+        passed = mask_conf >= conf_thres
+        gated_score = torch.where(passed, score, torch.zeros_like(score))
 
     k = min(pre_nms_topk, prediction.shape[1])
-    top_score, top_idx = torch.sort(gated_score, dim=1, descending=True, stable=True)
-    top_score, top_idx = top_score[:, :k].contiguous(), top_idx[:, :k]
-    rest = torch.cat([prediction[..., 5:13], confs, preds.float()], -1)
-    return _take(box, top_idx), top_score, _take(rest, top_idx)
+    if recording():
+        # the slots of the keep step that hold a gated anchor, and all its slots
+        count("nms.gated", passed.sum(1).clamp_(max=k).sum())
+        count("nms.slots", prediction.shape[0] * k)
+    with annotate("nms.topk", dev):
+        top_score, top_idx = torch.sort(gated_score, dim=1, descending=True, stable=True)
+        top_score, top_idx = top_score[:, :k].contiguous(), top_idx[:, :k]
+        rest = torch.cat([prediction[..., 5:13], confs, preds.float()], -1)
+        return _take(box, top_idx), top_score, _take(rest, top_idx)
 
 
 def non_max_suppression(
@@ -131,12 +144,16 @@ def non_max_suppression(
     """
     if candidate_selector not in SELECTORS:
         raise ValueError(f"candidate_selector {candidate_selector!r}: one of {SELECTORS}")
-    box_k, score_k, rest_k = select_candidates(prediction, conf_thres, pre_nms_topk,
-                                               compat_ad4_bug)
-    keep = greedy_nms_mask(box_k, score_k, iou_thres, iters=nms_iters)
+    dev = prediction.device
+    with annotate("nms", dev):
+        box_k, score_k, rest_k = select_candidates(prediction, conf_thres, pre_nms_topk,
+                                                   compat_ad4_bug)
+        with annotate("nms.keep", dev):
+            keep = greedy_nms_mask(box_k, score_k, iou_thres, iters=nms_iters)
 
-    order = stable_compact_order(keep, max_det)
-    det = torch.cat([_take(box_k, order), _take(rest_k, order)], -1)
-    valid = torch.gather(keep, 1, order)
-    det = torch.where(valid[..., None], det, torch.zeros_like(det))
-    return det, valid, valid.sum(-1).to(torch.int32)
+        with annotate("nms.compact", dev):
+            order = stable_compact_order(keep, max_det)
+            det = torch.cat([_take(box_k, order), _take(rest_k, order)], -1)
+            valid = torch.gather(keep, 1, order)
+            det = torch.where(valid[..., None], det, torch.zeros_like(det))
+            return det, valid, valid.sum(-1).to(torch.int32)

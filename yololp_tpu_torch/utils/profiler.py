@@ -3,10 +3,22 @@ yololp_tpu/utils/profiler.py; the names are kept).
 
 `trace(logdir)` captures a torch.profiler trace of everything inside the
 context (host operators and, on the card, CUDA kernels and copies) and writes
-it to `logdir` as a chrome / tensorboard trace; `annotate(name)` adds a named
-region (a `record_function`, and an NVTX range on the card). `model_flops`
-counts the operators' flops with torch's FlopCounterMode and reads the peak
-device memory of one call.
+it to `logdir` as a chrome / tensorboard trace. `model_flops` counts the
+operators' flops with torch's FlopCounterMode and reads the peak device
+memory of one call.
+
+Spans and counters. `annotate(name, device)` is the program's span and
+`count(name, value)` its counter; both record only while a torch.profiler
+session records (and never while torch.export or torch.compile traces), so
+with the profiler off a span is one C call and a shared no-op context, and a
+counter nothing. A recorded span is a `record_function` range (in the
+device trace, on the profiler's clock), a CUDA event pair on the current
+stream when `device` is a card, its host start and end in epoch nanoseconds
+(`time.time_ns`, the clock of the profiler's Chrome trace: an event's `ts`
+plus `baseTimeNanoseconds`), and its name, id, parent's id and request id.
+The outermost span of a thread opens a request id; the spans inside it
+inherit it. `span_totals()`, `spans()` and `counters()` read what was
+recorded (the events are resolved on read); `reset_spans()` empties it.
 
 Timing. A "scan" is a Python loop of K chained steps, each step's input
 computed from the previous step's output, so no step can be skipped. The
@@ -20,7 +32,9 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import threading
 import time
+from collections import defaultdict, deque
 from typing import Any
 
 import torch
@@ -39,19 +53,190 @@ def trace(logdir: str):
         yield prof
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named trace region: torch.profiler.record_function, and an NVTX range
-    when a card is present."""
-    nvtx = torch.cuda.is_available()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
+# -- spans and counters ------------------------------------------------------
+
+MAX_SPANS = 1 << 14    # individual spans kept (the oldest are dropped; totals keep all)
+MAX_PENDING = 1 << 12  # spans whose events wait to be read before a read is forced
+
+_OFF = contextlib.nullcontext()
+_span_ids = itertools.count(1)
+_request_ids = itertools.count(1)
+_local = threading.local()
+
+
+class _Store:
+    """What the spans and counters recorded: the last MAX_SPANS spans, the
+    totals of every span by name, the counters, and a pool of CUDA events
+    by device index."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.events: dict = defaultdict(list)
+        self.reset()
+
+    def reset(self):
+        with self.lock:
+            self.spans = deque(maxlen=MAX_SPANS)
+            self.pending = []  # closed spans whose events are not read yet
+            self.totals = {}   # name -> [count, host_s, device_count, device_s]
+            self.counters = {}
+
+    def close(self, span: "_Span"):
+        """Keep a closed span. When it is a request's outermost span, read
+        the spans whose work has ended and return their events to the pool
+        (in a served loop, the last request's: the device is busy with this
+        one's, so the read costs it no idle time)."""
+        with self.lock:
+            self.spans.append(span)
+            t = self.totals.setdefault(span.name, [0, 0.0, 0, 0.0])
+            t[0] += 1
+            t[1] += (span.end_ns - span.start_ns) * 1e-9
+            if span.events is not None:
+                self.pending.append(span)
+            if len(self.pending) >= MAX_PENDING:
+                self.resolve()
+            elif span.parent is None:
+                self.resolve(wait=False)
+
+    def resolve(self, wait: bool = True):
+        """Read the device time of the pending spans and return their events
+        to the pool; the caller holds the lock. `wait`: every pending span,
+        waiting for its end event; else only those whose work has ended."""
+        left = []
+        for span in self.pending:
+            start, end = span.events
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                left.append(span)
+                continue
+            span.device_s = start.elapsed_time(end) * 1e-3
+            t = self.totals[span.name]
+            t[2] += 1
+            t[3] += span.device_s
+            self.events[span.device_index] += (start, end)
+            span.events = None
+        self.pending = left
+
+    def event_pair(self, index: int) -> tuple:
+        """Two events of device `index` from the pool (new ones when it is
+        empty)."""
+        with self.lock:
+            pool = self.events[index]
+            if len(pool) >= 2:
+                return pool.pop(), pool.pop()
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def add(self, name: str, value):
+        with self.lock:
+            prev = self.counters.get(name)
+            self.counters[name] = value if prev is None else prev + value
+
+
+_STORE = _Store()
+
+
+def recording() -> bool:
+    """Whether spans and counters record now: a torch.profiler session is
+    recording and no torch.export or torch.compile trace is running."""
+    return torch._C._autograd._profiler_enabled() and not torch.compiler.is_compiling()
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "request", "start_ns", "end_ns", "device_s",
+                 "device_index", "events", "_stream", "_range")
+
+    def __init__(self, name: str, device):
+        self.name, self.device_s, self.events = name, None, None
+        dev = torch.device(device) if device is not None else None
+        self.device_index = (dev.index if dev.index is not None else torch.cuda.current_device()
+                             ) if dev is not None and dev.type == "cuda" else None
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        stack = _stack()
+        self.parent = stack[-1].id if stack else None
+        self.request = stack[-1].request if stack else next(_request_ids)
+        self.id = next(_span_ids)
+        if self.device_index is not None:
+            self.events = _STORE.event_pair(self.device_index)
+            self._stream = torch.cuda.current_stream(self.device_index)
+            self.events[0].record(self._stream)
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        if self.events is not None:
+            self.events[1].record(self._stream)
+            self._stream = None
+        _stack().pop()
+        self._range.__exit__(*exc)
+        self._range = None
+        _STORE.close(self)
+        return False
+
+
+def annotate(name: str, device=None):
+    """The program's span `name` around a block (a context manager).
+    `device`: the device the block's tensors are on; on a card the span
+    also times the block's work on the current stream with a CUDA event
+    pair. With no profiler recording, a shared no-op context."""
+    if not recording():
+        return _OFF
+    return _Span(name, device)
+
+
+def count(name: str, value):
+    """Add `value` (an int, or a 0-d tensor, summed on its device) to the
+    counter `name`; nothing unless spans record (`recording()`). A caller
+    that computes `value` on the device checks `recording()` first, and
+    launches that work after the span it describes has closed."""
+    if recording():
+        _STORE.add(name, value)
+
+
+def span_totals() -> dict:
+    """{name: {"count", "host_s", "device_count", "device_s"}} over every
+    span recorded since `reset_spans()`: occurrences, host seconds, the
+    occurrences timed on a card and their device seconds (None when none
+    was). Waits for the spans' device work to end."""
+    with _STORE.lock:
+        _STORE.resolve()
+        return {k: {"count": c, "host_s": h, "device_count": dc, "device_s": ds if dc else None}
+                for k, (c, h, dc, ds) in _STORE.totals.items()}
+
+
+def spans() -> list:
+    """The last MAX_SPANS spans, oldest first, each a dict: name, id,
+    parent (None for a request's outermost span), request, start_ns and
+    end_ns (epoch nanoseconds), device_s (None off the card)."""
+    with _STORE.lock:
+        _STORE.resolve()
+        return [{"name": s.name, "id": s.id, "parent": s.parent, "request": s.request,
+                 "start_ns": s.start_ns, "end_ns": s.end_ns, "device_s": s.device_s}
+                for s in _STORE.spans]
+
+
+def counters() -> dict:
+    """{name: int} of every counter since `reset_spans()` (reads device
+    values once)."""
+    with _STORE.lock:
+        return {k: int(v) for k, v in _STORE.counters.items()}
+
+
+def reset_spans():
+    """Forget every span and counter recorded so far."""
+    _STORE.reset()
 
 
 def _leaves(tree) -> list:
