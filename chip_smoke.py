@@ -161,8 +161,11 @@ toolkit. Phases, each of which raises on failure:
      program of phase 4's inferer and the int8 one on phase 7's
      calibration (the conv plan), each returning its decode beside
      det/valid/num, taken by torch.export at batch 32 and 640. Saved and
-     loaded as a .pt2: greedy_nms once and int8_conv as often as eager (68)
-     a batch, det/valid/num equal to the plain CPU NMS on its own decode
+     loaded as a .pt2: greedy_nms once, and int8_conv (68) and the deploy
+     convs' bias_act as often as eager, a batch (no bias_act inside the
+     AOTInductor package below: export.inductor_program hands Inductor the
+     epilogues' plain arithmetic to fuse); det/valid/num equal to the plain
+     CPU NMS on its own decode
      and to eager's bit for bit. Compiled into an AOTInductor package
      (compile seconds printed) and run through aoti_load_package: the same
      launch counts, read from inside the package; det/valid/num equal to
@@ -172,8 +175,8 @@ toolkit. Phases, each of which raises on failure:
      valid and num equal; the kernels by name in a profiler table of one
      batch. The C++ runner (built beside phases 3-20) runs --bench 20 on
      both packages: its first LCG batch's num equals the Python package's
-     on that batch, rebuilt in numpy, and it reports one greedy_nms and 68
-     int8_conv launches a batch. img/s of eager, the .pt2, the package and
+     on that batch, rebuilt in numpy, and it reports one greedy_nms, 68
+     int8_conv and no bias_act launch a batch. img/s of eager, the .pt2, the package and
      the runner's sync and pipelined loops by CUDA events (the runner by
      its host clock); the host cost of an op dispatch against the launcher
      called directly (and a torch.library.custom_op twin), times the
@@ -234,7 +237,20 @@ toolkit. Phases, each of which raises on failure:
      decode (boxes bit for bit, scores within EXPORT_SCORE_ATOL); and the e2e
      program on phase 4's weights at phase 4's gate (2K anchors of every
      image pass, so greedy_nms walks a full K = 256 in one launch) equals the
-     plain CPU NMS on its decode. The bench's line of the numbers is printed.
+     plain CPU NMS on its decode. The bench's line of the numbers is printed;
+  26. the deploy convs' epilogue kernel (csrc/bias_act.cu) against its plain
+     version and PyTorch's unfused add_ + activation: none and ReLU bit for
+     bit, SiLU bit for bit or within EPILOGUE_SILU_ULPS (1 bf16 ulp, 2
+     fp32), at every distinct conv-output shape of the yololps and yolov6m
+     deploy forwards at b128, and on fp32, NCHW, a ragged count and an
+     unaligned view; each model's
+     b128 forward with the kernel against the same forward on the parent's
+     sequence (a no-op hook on each biased conv keeps it on cuDNN's bias
+     add), decode bit for bit, and 71 / 108 launches a forward; per model
+     the kernel's time alone summed over a forward beside the bound (twice
+     the conv outputs' bytes over 3.35 TB/s), the plain version's and the
+     unfused sequence's, its device time in a profiled forward, and both
+     forwards' times and profiles.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -410,7 +426,8 @@ def frames(rng):
             for i in range(BATCH)]
 
 
-def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2, top_n: int = 12) -> dict:
+def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2, top_n: int = 12,
+                  batch: int = BATCH) -> dict:
     """Device time by kernel over `calls` warm calls of `fn`, by torch.profiler,
     beside the window's CUDA-event time: where an end-to-end batch goes."""
     from torch.autograd import DeviceType
@@ -432,7 +449,7 @@ def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2, top_n: int
             kernels[e.key] = getattr(e, "self_device_time_total", 0) / 1e3 / calls
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:top_n]
-    print(f"[{card}] profile, one {label} batch of {BATCH}: window {window_ms:.3f} ms, "
+    print(f"[{card}] profile, one {label} batch of {batch}: window {window_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), "
           f"{len(kernels)} kernel names")
     for name, ms in top:
@@ -2733,7 +2750,7 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
     packages."""
     from yololp_tpu_torch.deploy import aoti_cpp
     from yololp_tpu_torch.export.export import build_export_fn, compile_aoti, export_program
-    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops import cuda_bias_act, cuda_conv, cuda_nms
     from yololp_tpu_torch.ops.nms import select_candidates
     from yololp_tpu_torch.quant.int8_infer import make_int8_infer_fn
 
@@ -2756,34 +2773,42 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
         nodes = [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
         n_nms = sum("yololp_torch.greedy_nms_mask" in t for t in nodes)
         n_conv = sum("yololp_torch.int8_conv" in t for t in nodes)
-        want, (eager_nms, eager_conv) = counted(eager, cuda_nms, cuda_conv)
+        n_ba = sum("yololp_torch.bias_act" in t for t in nodes)
+        want, (eager_nms, eager_conv, eager_ba) = counted(eager, cuda_nms, cuda_conv,
+                                                          cuda_bias_act)
 
         path = os.path.join(tmp, f"{label}.pt2")
         torch.export.save(prog, path)
         loaded = torch.no_grad()(torch.export.load(path).module())
-        got, (nms_n, conv_n) = counted(lambda: loaded(staged), cuda_nms, cuda_conv)
+        got, (nms_n, conv_n, ba_n) = counted(lambda: loaded(staged), cuda_nms, cuda_conv,
+                                             cuda_bias_act)
         kept = nms_on_own_decode(got, kw, f"{label} .pt2")
-        if (nms_n, conv_n) != (1, eager_conv) or (n_nms, n_conv) != (1, eager_conv):
-            raise AssertionError(f"{label} .pt2: greedy_nms {nms_n}, int8_conv {conv_n} "
-                                 f"launches a batch, {n_nms} / {n_conv} nodes; eager "
-                                 f"{eager_nms} / {eager_conv}")
+        if ((nms_n, conv_n, ba_n) != (1, eager_conv, eager_ba)
+                or (n_nms, n_conv, n_ba) != (1, eager_conv, eager_ba)):
+            raise AssertionError(f"{label} .pt2: greedy_nms {nms_n}, int8_conv {conv_n}, "
+                                 f"bias_act {ba_n} launches a batch, {n_nms} / {n_conv} / "
+                                 f"{n_ba} nodes; eager {eager_nms} / {eager_conv} / {eager_ba}")
         for name, a, b in zip(("det", "valid", "num"), got, want):
             if not torch.equal(a, b):
                 raise AssertionError(f"{label} .pt2: {name} != the eager run's")
         print(f"[{card}] phase 21 {label}: torch.export in {export_s:.1f} s, "
-              f"{n_nms} greedy_nms_mask and {n_conv} int8_conv nodes; the .pt2 saved and "
-              f"loaded: greedy_nms {nms_n}, int8_conv {conv_n} launches a batch (eager "
-              f"{eager_nms} / {eager_conv}); det/valid/num == plain CPU NMS on its own "
+              f"{n_nms} greedy_nms_mask, {n_conv} int8_conv and {n_ba} bias_act nodes; the "
+              f".pt2 saved and loaded: greedy_nms {nms_n}, int8_conv {conv_n}, bias_act "
+              f"{ba_n} launches a batch (eager {eager_nms} / {eager_conv} / {eager_ba}); "
+              f"det/valid/num == plain CPU NMS on its own "
               f"decode (kept {kept[0]}..{kept[1]}) and == the eager run, bit for bit",
               flush=True)
 
         aoti_path, compile_s = compile_aoti(prog, os.path.join(tmp, f"{label}.aoti.pt2"))
         pkg = torch._inductor.aoti_load_package(aoti_path)
-        got_a, (nms_a, conv_a) = counted(lambda: pkg(staged), cuda_nms, cuda_conv)
+        got_a, (nms_a, conv_a, ba_a) = counted(lambda: pkg(staged), cuda_nms, cuda_conv,
+                                               cuda_bias_act)
         kept = nms_on_own_decode(got_a, kw, f"{label} AOTInductor")
-        if (nms_a, conv_a) != (1, eager_conv):
+        # the package's epilogues are Inductor's (export.inductor_program): no bias_act
+        if (nms_a, conv_a, ba_a) != (1, eager_conv, 0):
             raise AssertionError(f"{label} AOTInductor: greedy_nms {nms_a}, int8_conv "
-                                 f"{conv_a} launches a batch; eager {eager_nms} / {eager_conv}")
+                                 f"{conv_a}, bias_act {ba_a} launches a batch; eager "
+                                 f"{eager_nms} / {eager_conv} / {eager_ba}")
         # eager's decode: the .pt2's, which replays eager's ops bit for bit
         dec_a, dec_e = got_a[3].float().cpu(), got[3].float().cpu()
         err_px = float((dec_a[..., :13] - dec_e[..., :13]).abs().max())
@@ -2803,7 +2828,8 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
                                  f"px, {err_score} score apart; valid, num equal: "
                                  f"{same[1:]}")
         print(f"[{card}] phase 21 {label}: AOTInductor package compiled in {compile_s:.1f} s; "
-              f"greedy_nms {nms_a}, int8_conv {conv_a} launches a batch from inside it; "
+              f"greedy_nms {nms_a}, int8_conv {conv_a}, bias_act {ba_a} launches a batch from "
+              f"inside it; "
               f"det/valid/num == plain CPU NMS on its own decode (kept {kept[0]}..{kept[1]}); "
               f"its decode vs eager's max |diff| {err_px:.4g} px, {err_score:.4g} score "
               f"(bf16 tolerance rtol {EXPORT_RTOL} + {EXPORT_ATOL_PX} px, "
@@ -2825,7 +2851,7 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
         binary, build_s = runner_build.result()
         py_num = pkg(lcg)[2].cpu().tolist()
         rec = aoti_cpp.bench(binary, aoti_path, RUNNER_ITERS, BATCH, IMG)
-        want_launches = {"greedy_nms": 1.0, "int8_conv": float(eager_conv)}
+        want_launches = {"greedy_nms": 1.0, "int8_conv": float(eager_conv), "bias_act": 0.0}
         if rec["first_num"] != py_num or rec["launches_per_batch"] != want_launches:
             raise AssertionError(f"{label} runner: num {rec['first_num']} (Python package "
                                  f"{py_num}), launches a batch {rec['launches_per_batch']} "
@@ -2842,9 +2868,10 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
               f"dets out; CUDA events, median of 5 windows of 2 batches; the runner by its "
               f"host clock): " + ", ".join(f"{k} {v['img_s']:.1f} ({v['ms']:.3f} ms)"
                                            for k, v in times.items()), flush=True)
-        out[label] = dict(export_s=export_s, compile_s=compile_s, nodes=[n_nms, n_conv],
-                          launches_pt2=[nms_n, conv_n], launches_aoti=[nms_a, conv_a],
-                          launches_eager=[eager_nms, eager_conv], decode_err_px=err_px,
+        out[label] = dict(export_s=export_s, compile_s=compile_s, nodes=[n_nms, n_conv, n_ba],
+                          launches_pt2=[nms_n, conv_n, ba_n],
+                          launches_aoti=[nms_a, conv_a, ba_a],
+                          launches_eager=[eager_nms, eager_conv, eager_ba], decode_err_px=err_px,
                           decode_err_score=err_score, equal_to_eager=same,
                           det_rows_differ=rows_differ, times=times,
                           runner=rec, profile=profile, aoti_path=aoti_path)
@@ -3633,6 +3660,264 @@ def phase_bench(results, card, dev, export, weights, cfg):
     return out
 
 
+# ---------------- phase 26: the deploy convs' epilogue (csrc/bias_act.cu) ----------------
+
+# the benchmark cells' models and the biased convs of one deploy forward of
+# each: the epilogue kernel launches once for each
+EPILOGUE_MODELS = {"yololps": 71, "yolov6m": 108}
+EPILOGUE_BATCH = 128
+# SiLU's allowance against PyTorch's silu and the plain version, in ulps of
+# the dtype: the kernel uses the same formula, v / (1 + expf(-v)) in fp32,
+# but PyTorch's build and this one's (-fmad=false) may compile expf's
+# libdevice code apart (on the CPU the plain version and F.silu take other
+# exps: up to 2 fp32 ulps, tests/test_torch_bias_act.py); none and ReLU are
+# held bit for bit
+EPILOGUE_SILU_ULPS = {torch.bfloat16: 1, torch.float32: 2}
+
+
+class ParentEpilogue:
+    """Within the block, every biased conv of `model` carries a no-op forward
+    pre-hook, so `layers/blocks.py:conv_act` runs it as itself (cuDNN's conv,
+    then PyTorch's broadcast add of the bias) and the activation after it:
+    the sequence the deploy graph ran before the epilogue kernel."""
+
+    def __init__(self, model):
+        self.model, self.handles = model, []
+
+    def __enter__(self):
+        self.handles = [m.register_forward_pre_hook(lambda mod, args: None)
+                        for m in self.model.modules()
+                        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))
+                        and m.bias is not None]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def epilogue_calls(inferer, batch):
+    """(C, H, W, act, dtype) of every bias_act call of one `inferer.predict`."""
+    from yololp_tpu_torch.ops import cuda_bias_act
+
+    calls, real = [], cuda_bias_act.bias_act
+
+    def spy(y, b, act):
+        calls.append((y.shape[1], y.shape[2], y.shape[3], act, y.dtype))
+        return real(y, b, act)
+
+    cuda_bias_act.bias_act = spy
+    try:
+        inferer.predict(batch)
+    finally:
+        cuda_bias_act.bias_act = real
+    return calls
+
+
+def unfused_epilogue(y, b, act):
+    """PyTorch's unfused epilogue on a conv output `y`, in place as the conv
+    leaves it to PyTorch: `add_` of the broadcast bias, then the activation."""
+    import torch.nn.functional as F
+
+    z = y.add_(b.reshape(1, -1, 1, 1))
+    return (z, F.relu(z), F.silu(z))[act]
+
+
+def max_ulps(got, want):
+    """The largest |got - want| in ulps of want's dtype at want's value."""
+    fi = torch.finfo(want.dtype)
+    w = want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(fi.tiny)))) * fi.eps
+    return float(((got.double() - w).abs() / ulp).max())
+
+
+def check_epilogue(y, b, act, what):
+    """The kernel on `y` against the plain version and the unfused sequence
+    on the card; returns (max SiLU ulps, elements that differ)."""
+    from yololp_tpu_torch.ops import cuda_bias_act
+
+    got = cuda_bias_act.bias_act(y, b, act)
+    torch.cuda.synchronize()
+    plain = cuda_bias_act.bias_act_plain(y, b, act)
+    lib = unfused_epilogue(y.clone(), b, act)
+    if got.stride() != y.stride():
+        raise AssertionError(f"bias_act {what}: strides {got.stride()}, y's {y.stride()}")
+    ulps, differ = 0.0, 0
+    for name, want in (("plain", plain), ("unfused", lib)):
+        if torch.equal(got, want):
+            continue
+        n = int((got != want).sum())
+        u = max_ulps(got, want)
+        if act != 2 or u > EPILOGUE_SILU_ULPS[y.dtype]:
+            raise AssertionError(f"bias_act {what} act {act}: {n} elements differ from the "
+                                 f"{name} version, up to {u:.3g} ulps")
+        ulps, differ = max(ulps, u), max(differ, n)
+    return ulps, differ
+
+
+def epilogue_device_ms(fn, bound_ms):
+    """The epilogue kernel's device ms a call of `fn` by torch.profiler; a
+    reading under the bytes' bound means the profiling session lost
+    launches (CUPTI dropped some late in a full run of this script on the
+    H100), so it is taken again, up to 3 times, else None (not measured)."""
+    from yololp_tpu_torch.utils.profiler import kernel_device_ms
+
+    for _ in range(3):
+        ms = kernel_device_ms(fn, "bias_act_kernel")
+        if ms >= bound_ms:
+            return ms
+    return None
+
+
+def phase_bias_act(results, card, dev):
+    """26. The deploy convs' epilogue kernel (csrc/bias_act.cu): against its
+    plain version and PyTorch's unfused add_ + activation at every distinct
+    shape of the yololps and yolov6m forwards at b128 (and fp32, NCHW, a
+    ragged count and an unaligned view); the two deploy forwards at b128
+    against the parent's sequence (decode bit for bit) with the launches
+    counted; times alone beside the bound, the plain version and the
+    unfused sequence, summed over a forward; the kernel's device time in a
+    profiled forward."""
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.layers.fuse import fuse_model
+    from yololp_tpu_torch.ops import cuda_bias_act
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 26)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    out = {"models": {}}
+    silu = {torch.bfloat16: [0.0, 0], torch.float32: [0.0, 0]}  # max ulps, elements differ
+
+    def note(dtype, u_n):
+        silu[dtype] = [max(silu[dtype][0], u_n[0]), max(silu[dtype][1], u_n[1])]
+
+    def rand(*shape, dtype=torch.bfloat16, fmt=torch.channels_last):
+        t = (2 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+        return t.contiguous(memory_format=fmt) if t.dim() == 4 else t
+
+    # the layouts and dtypes beside the main path's: fp32, NCHW, a count that
+    # is not a multiple of the vector, a base that is not 16-byte aligned
+    for act in (0, 1, 2):
+        for dtype in (torch.float32, torch.bfloat16):
+            note(dtype, check_epilogue(rand(8, 277, 20, 20, dtype=dtype), rand(277, dtype=dtype),
+                                       act, f"{dtype} C 277"))
+            note(dtype, check_epilogue(rand(8, 64, 40, 40, dtype=dtype,
+                                            fmt=torch.contiguous_format),
+                                       rand(64, dtype=dtype), act, f"{dtype} NCHW"))
+            note(dtype, check_epilogue(rand(1, 277, 3, 5, dtype=dtype), rand(277, dtype=dtype),
+                                       act, f"{dtype} ragged"))
+            flat = rand(3 + 2 * 12 * 5 * 7, dtype=dtype)
+            view = flat[3:].view(2, 5, 7, 12).permute(0, 3, 1, 2)
+            note(dtype, check_epilogue(view, rand(12, dtype=dtype), act, f"{dtype} unaligned"))
+
+    for name, want_launches in EPILOGUE_MODELS.items():
+        cfg, train = zoo_model(name, SEED + 26)
+        weights = fuse_model(train).state_dict()
+        del train
+        inf = Inferer(".", weights, cfg, img_size=IMG, half=True, iou_thres=0.45,
+                      max_det=1000, device=dev)
+        calls = epilogue_calls(inf, np.zeros((1, IMG, IMG, 3), np.uint8))
+        if len(calls) != want_launches:
+            raise AssertionError(f"{name}: {len(calls)} bias_act calls a forward, want "
+                                 f"{want_launches}")
+        shapes = {}
+        for c, h, w, act, dtype in calls:
+            shapes[(c, h, w, act)] = shapes.get((c, h, w, act), 0) + 1
+        ms = dict(kernel=0.0, device=0.0, plain=0.0, library=0.0)
+        nbytes = 0
+        largest = None
+        for (c, h, w, act), n in sorted(shapes.items()):
+            y, b = rand(EPILOGUE_BATCH, c, h, w), rand(c)
+            note(torch.bfloat16, check_epilogue(y, b, act, f"{name} C {c} {h}x{w}"))
+            size = 2 * y.numel() * y.element_size()
+            t = dict(kernel=float(np.median(cuda_ms(lambda: cuda_bias_act.bias_act(y, b, act),
+                                                    10, 3))),
+                     device=epilogue_device_ms(lambda: cuda_bias_act.bias_act(y, b, act),
+                                               size / HBM_BYTES_S * 1e3),
+                     plain=float(np.median(cuda_ms(
+                         lambda: cuda_bias_act.bias_act_plain(y, b, act), 2, 3))),
+                     library=float(np.median(cuda_ms(lambda: unfused_epilogue(y, b, act),
+                                                     10, 3))))
+            for k in ms:
+                ms[k] = None if ms[k] is None or t[k] is None else ms[k] + n * t[k]
+            nbytes += n * size
+            if largest is None or size > largest["bytes"]:
+                largest = dict(shape=[EPILOGUE_BATCH, c, h, w], act=act, bytes=size,
+                               bound_ms=size / HBM_BYTES_S * 1e3, **{f"{k}_ms": v
+                                                                     for k, v in t.items()})
+            del y, b
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+
+        batch = torch.from_numpy(rng.integers(0, 256, (EPILOGUE_BATCH, IMG, IMG, 3), np.uint8))
+        batch = batch.pin_memory() if dev.type == "cuda" else batch  # as the benchmark stages
+        cuda_bias_act.launches = 0
+        fused = inf.predict(batch)
+        torch.cuda.synchronize()
+        launches = cuda_bias_act.launches
+        if launches != want_launches:
+            raise AssertionError(f"{name}: {launches} bias_act launches a b{EPILOGUE_BATCH} "
+                                 f"forward, want {want_launches}")
+        with ParentEpilogue(inf.model):
+            parent = inf.predict(batch)
+            torch.cuda.synchronize()
+            if cuda_bias_act.launches != want_launches:
+                raise AssertionError(f"{name}: the parent's sequence launched bias_act")
+            parent_ms = float(np.median(cuda_ms(lambda: inf.predict(batch), 1, 3)))
+            prof_parent = profile_batch(lambda: inf.predict(batch), card,
+                                        label=f"{name} parent's epilogue", batch=EPILOGUE_BATCH)
+        equal = torch.equal(fused, parent)
+        err = float((fused - parent).abs().max())
+        del parent
+        if not equal and silu[torch.bfloat16][1] == 0:
+            raise AssertionError(f"{name}: the b{EPILOGUE_BATCH} decode differs from the "
+                                 f"parent's sequence by up to {err}")
+        fused_ms = float(np.median(cuda_ms(lambda: inf.predict(batch), 1, 3)))
+        prof = profile_batch(lambda: inf.predict(batch), card, label=f"{name} fused epilogue",
+                             batch=EPILOGUE_BATCH)
+        in_forward_ms = sum(v for k, v in prof["by_name"].items() if "bias_act_kernel" in k)
+        elementwise = {k: v for k, v in prof_parent["by_name"].items()
+                       if "elementwise_kernel" in k and "vectorized" not in k}
+        device_ms = ms["device"]
+        rec = dict(launches=launches, shapes=len(shapes), bytes=nbytes, bound_ms=bound_ms,
+                   alone_ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
+                   device_ms=device_ms, in_forward_ms=in_forward_ms,
+                   share_of_bound_alone=bound_ms / ms["kernel"],
+                   share_of_bound_device=bound_ms / device_ms if device_ms else None,
+                   largest=largest, decode_equal=equal, decode_max_diff=err,
+                   forward_ms=dict(fused=fused_ms, parent=parent_ms),
+                   parent_elementwise_ms=elementwise)
+        out["models"][name] = rec
+        print(f"[{card}] phase 26 {name} b{EPILOGUE_BATCH}: {launches} bias_act launches a "
+              f"forward ({len(shapes)} shapes), decode == the parent's sequence: {equal} (max "
+              f"|diff| {err:.3g}); epilogue bytes {nbytes / 1e9:.3f} GB, bound {bound_ms:.3f} "
+              f"ms; kernel alone {ms['kernel']:.3f} ms ({100 * bound_ms / ms['kernel']:.1f}% "
+              f"of bound), on device "
+              + (f"{device_ms:.3f} ms ({100 * bound_ms / device_ms:.1f}%)" if device_ms
+                 else "not measured (the profiler lost launches)")
+              + f", in the profiled forward {in_forward_ms:.3f} ms"
+              + f"; plain {ms['plain']:.3f} ms; unfused add_ + activation {ms['library']:.3f} "
+              f"ms; forward {fused_ms:.3f} ms (parent's sequence {parent_ms:.3f} ms); the "
+              f"largest shape {largest['shape']} act {largest['act']}: kernel "
+              f"{largest['kernel_ms']:.3f} ms alone, {largest['device_ms']} ms on device, "
+              f"bound {largest['bound_ms']:.3f} ms, plain "
+              f"{largest['plain_ms']:.3f} ms, unfused {largest['library_ms']:.3f} ms; the "
+              f"parent's non-vectorized elementwise kernels: "
+              + ", ".join(f"{v:.3f} ms {k[:60]}" for k, v in elementwise.items()), flush=True)
+        del fused, inf, weights
+
+    out["silu_max_ulps"] = {str(k): v[0] for k, v in silu.items()}
+    out["silu_elements_differ"] = {str(k): v[1] for k, v in silu.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    results["bias_act"] = out
+    print(f"[{card}] phase 26: SiLU against PyTorch's silu and the plain version, the most "
+          f"elements that differ in one case and their largest gap: bf16 "
+          f"{silu[torch.bfloat16][1]}, {silu[torch.bfloat16][0]:.3g} ulps (allowed "
+          f"{EPILOGUE_SILU_ULPS[torch.bfloat16]}); fp32 {silu[torch.float32][1]}, "
+          f"{silu[torch.float32][0]:.3g} ulps (allowed {EPILOGUE_SILU_ULPS[torch.float32]}); "
+          f"none and ReLU bit for bit; {out['seconds']:.0f} s", flush=True)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -3816,6 +4101,9 @@ def main():
     phase_bench(results, card, dev, export, weights, cfg)
     export_dir.cleanup()
 
+    # 26. the deploy convs' epilogue kernel at the benchmark cells' shapes
+    epilogue = phase_bias_act(results, card, dev)
+
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
@@ -3854,7 +4142,22 @@ def main():
                 "library_ms": (mm_tot["library_ms"]
                                if mm_tot["library_launches"] == mm_tot["launches"] else None),
                 "library_ms_where_defined": mm_tot["library_ms"],
-                "library_launches": mm_tot["library_launches"], "matches_plain": True}]
+                "library_launches": mm_tot["library_launches"], "matches_plain": True},
+               {"name": "bias_act", "route": "cuda",
+                "source": "yololp_tpu_torch/csrc/bias_act.cu",
+                "replaces": None,
+                "launches": epilogue["models"]["yololps"]["launches"],
+                "max_abs_err": None, "silu_max_ulps": epilogue["silu_max_ulps"],
+                "ms": epilogue["models"]["yololps"]["alone_ms"],
+                "device_ms": epilogue["models"]["yololps"]["device_ms"],
+                "plain_ms": epilogue["models"]["yololps"]["plain_ms"],
+                "bound_ms": epilogue["models"]["yololps"]["bound_ms"], "bound_by": "bytes",
+                "library_ms": epilogue["models"]["yololps"]["library_ms"],
+                "matches_plain": True,
+                "export_launches": {k: export[k]["launches_pt2"][2] for k in ("bf16", "int8")},
+                "aoti_launches": {k: export[k]["launches_aoti"][2] for k in ("bf16", "int8")},
+                "runner_launches": {k: export[k]["runner"]["launches_per_batch"]["bias_act"]
+                                    for k in ("bf16", "int8")}}]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -31,7 +31,7 @@ from yololp_tpu_torch.ops import _build
 SRC = Path(__file__).resolve().parent
 SOURCES = ("ops.cpp", "yololp_runner.cpp")
 BUILD_DIR = _build.BUILD_DIR.parent / "runner"
-KERNELS = ("greedy_nms", "int8_conv")  # the kernels an exported program calls
+KERNELS = ("greedy_nms", "int8_conv", "bias_act")  # the kernels an exported program calls
 OPENCV_INCLUDE = Path("/usr/include/opencv4")
 OPENCV_LIBS = ["-lopencv_core", "-lopencv_imgcodecs", "-lopencv_imgproc"]
 

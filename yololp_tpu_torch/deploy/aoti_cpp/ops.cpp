@@ -1,11 +1,15 @@
 // The yololp_torch custom ops for a process without Python: the schemas of
 // yololp_tpu_torch/ops/library.py (the same text, held equal by a test) and
-// CUDA kernels for the two ops an exported program calls, greedy_nms_mask
-// and int8_conv. They launch csrc/greedy_nms.cu and csrc/int8_conv.cu
-// through the libraries ops/_build.py builds (their extern "C" launchers),
-// with the checks of ops/cuda_nms.py and ops/cuda_conv.py, on the current
-// stream of the tensors' card, and raise on any refusal. matmul and
-// matmul_nt are declared only: no exported program calls them.
+// CUDA kernels for the three ops an exported program calls, greedy_nms_mask,
+// int8_conv and bias_act. They launch csrc/greedy_nms.cu, csrc/int8_conv.cu
+// and csrc/bias_act.cu through the libraries ops/_build.py builds (their
+// extern "C" launchers), with the checks of ops/cuda_nms.py,
+// ops/cuda_conv.py and ops/cuda_bias_act.py, on the current stream of the
+// tensors' card, and raise on any refusal. matmul and matmul_nt are declared
+// only: no exported program calls them. A package that export.compile_aoti
+// writes calls no bias_act either (Inductor fuses the epilogues from their
+// plain arithmetic there); a package compiled from the .pt2 as it stands
+// does.
 //
 // An AOTInductor package calls a custom op through the dispatcher, so a C++
 // process that links this file runs the package's NMS and int8 convs in the
@@ -35,6 +39,8 @@ int int8_conv_weight_map(const int8_t* w, int O, long long K, long long ldw, voi
 int int8_conv_launch(const int8_t* x, const void* wmap, const float* a, const float* b, void* out,
                      int N, int H, int W, int C, int O, int KH, int stride, int mode, int relu,
                      int device, void* stream);
+int bias_act_launch(const void* y, const void* b, void* out, long long n, int C,
+                    long long inner, int dtype, int act, int device, void* stream);
 }
 
 namespace {
@@ -43,6 +49,7 @@ constexpr int64_t kMaxK = 1024;  // greedy_nms.cu's walk holds ceil(K/32) <= 32 
 
 std::atomic<long long> g_nms_launches{0};
 std::atomic<long long> g_conv_launches{0};
+std::atomic<long long> g_bias_act_launches{0};
 
 void* current_stream(const at::Tensor& t) {
   c10::impl::VirtualGuardImpl impl(t.device().type());
@@ -170,12 +177,40 @@ at::Tensor int8_conv_cuda(const at::Tensor& x_q, const at::Tensor& w_q, const at
   return out;
 }
 
+at::Tensor bias_act_cuda(const at::Tensor& y, const at::Tensor& b, int64_t act) {
+  TORCH_CHECK(y.dim() == 4, "y must be a 4-D NCHW tensor, got ", y.sizes());
+  TORCH_CHECK((y.scalar_type() == at::kFloat || y.scalar_type() == at::kBFloat16) &&
+                  b.scalar_type() == y.scalar_type(),
+              "y and b must be float32 or bfloat16 alike");
+  TORCH_CHECK(b.dim() == 1 && b.size(0) == y.size(1), "b must be (", y.size(1), ",), got ",
+              b.sizes());
+  TORCH_CHECK(act >= 0 && act <= 2, "act ", act, " is not one of 0 (none), 1 (ReLU), 2 (SiLU)");
+  TORCH_CHECK(y.device() == b.device(), "y and b on different devices");
+  TORCH_CHECK(b.is_contiguous(), "b must be contiguous");
+  const bool channels_last = y.is_contiguous(at::MemoryFormat::ChannelsLast);
+  TORCH_CHECK(channels_last || y.is_contiguous(), "y must be channels_last or contiguous");
+  TORCH_CHECK(y.is_cuda(), "the kernel takes cuda tensors");
+  at::Tensor out = at::empty_like(y);
+  if (y.numel() == 0) return out;
+  // channel of flat element e: (e / inner) % C
+  const int64_t inner = channels_last ? 1 : y.size(2) * y.size(3);
+  c10::DeviceGuard guard(y.device());  // the launcher sets its device
+  const int err = bias_act_launch(y.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(),
+                                  static_cast<int>(y.size(1)), inner,
+                                  y.scalar_type() == at::kFloat ? 0 : 1, static_cast<int>(act),
+                                  y.device().index(), current_stream(y));
+  TORCH_CHECK(err == 0, "bias_act kernel launch failed: cudaError ", err);
+  ++g_bias_act_launches;
+  return out;
+}
+
 }  // namespace
 
 // Launches of each kernel through these ops in this process, for the runner's
-// report: 0 greedy_nms, 1 int8_conv.
+// report: 0 greedy_nms, 1 int8_conv, 2 bias_act.
 extern "C" long long yololp_ops_launches(int which) {
-  return which == 0 ? g_nms_launches.load() : g_conv_launches.load();
+  return which == 0 ? g_nms_launches.load()
+                    : which == 1 ? g_conv_launches.load() : g_bias_act_launches.load();
 }
 
 TORCH_LIBRARY(yololp_torch, m) {
@@ -186,9 +221,11 @@ TORCH_LIBRARY(yololp_torch, m) {
         {at::Tag::needs_exact_strides});
   m.def("matmul(Tensor a, Tensor b) -> Tensor", {at::Tag::needs_exact_strides});
   m.def("matmul_nt(Tensor a, Tensor b_t) -> Tensor", {at::Tag::needs_exact_strides});
+  m.def("bias_act(Tensor y, Tensor b, int act) -> Tensor", {at::Tag::needs_exact_strides});
 }
 
 TORCH_LIBRARY_IMPL(yololp_torch, CUDA, m) {
   m.impl("greedy_nms_mask", &greedy_nms_mask_cuda);
   m.impl("int8_conv", &int8_conv_cuda);
+  m.impl("bias_act", &bias_act_cuda);
 }

@@ -144,7 +144,8 @@ int Bench(Runner& runner, const Args& a) {
   Inflight warm = runner.Enqueue(take());  // the first staged batch
   Runner::Complete(warm);
   const at::Tensor first_num = warm.num_host.clone();
-  const long long nms0 = yololp_ops_launches(0), conv0 = yololp_ops_launches(1);
+  const long long nms0 = yololp_ops_launches(0), conv0 = yololp_ops_launches(1),
+                  bias_act0 = yololp_ops_launches(2);
 
   auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < a.bench; ++i) {
@@ -176,7 +177,8 @@ int Bench(Runner& runner, const Args& a) {
       "\"sync\": {\"total_s\": %.6f, \"ms_per_batch\": %.4f, \"images_per_sec\": %.2f}, "
       "\"pipelined\": {\"total_s\": %.6f, \"ms_per_batch\": %.4f, \"images_per_sec\": %.2f}, "
       "\"ms_per_batch\": %.4f, \"images_per_sec\": %.2f, "
-      "\"launches_per_batch\": {\"greedy_nms\": %.2f, \"int8_conv\": %.2f}, "
+      "\"launches_per_batch\": {\"greedy_nms\": %.2f, \"int8_conv\": %.2f, "
+      "\"bias_act\": %.2f}, "
       "\"first_num\": [%s]}}\n",
       a.batch, a.size, a.bench, runner.device().str().c_str(),
       n_staged == wanted ? "true" : "false",
@@ -184,6 +186,7 @@ int Bench(Runner& runner, const Args& a) {
       pipe_s, 1e3 * pipe_s / a.bench, static_cast<double>(a.batch) * a.bench / pipe_s,
       1e3 * pipe_s / a.bench, static_cast<double>(a.batch) * a.bench / pipe_s,
       (yololp_ops_launches(0) - nms0) / batches, (yololp_ops_launches(1) - conv0) / batches,
+      (yololp_ops_launches(2) - bias_act0) / batches,
       nums.c_str());
   return 0;
 }

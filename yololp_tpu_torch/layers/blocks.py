@@ -24,13 +24,62 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yololp_tpu_torch.ops import cuda_bias_act
 from yololp_tpu_torch.parallel.mesh import global_sum_grad, world_size
+from yololp_tpu_torch.utils import profiler
 
 # Reference BN hyperparams: eps=1e-3, torch momentum=0.03.
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
 _ACTS = {"relu": nn.ReLU, "silu": nn.SiLU, None: nn.Identity}
+# an activation module's type -> the epilogue's act number, and its function
+_ACT_CODES = {nn.Identity: cuda_bias_act.NONE, nn.ReLU: cuda_bias_act.RELU,
+              nn.SiLU: cuda_bias_act.SILU}
+_ACT_FNS = {cuda_bias_act.NONE: lambda y: y, cuda_bias_act.RELU: F.relu,
+            cuda_bias_act.SILU: F.silu}
+
+
+def _epilogue_fusable(conv: nn.Module, x: torch.Tensor) -> bool:
+    """Whether `conv_act` may run `conv` without its bias and then the
+    epilogue op: no gradient is recorded (the op has no backward), no
+    autocast rewrites the conv's dtypes, the dtype is the kernel's and the
+    bias's, and no hook on the conv waits to see its own call (calibration's
+    and fake quantization's pre-hooks)."""
+    if torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad
+                                    or conv.bias.requires_grad):
+        return False
+    autocast = x.device.type in ("cpu", "cuda") and torch.is_autocast_enabled(x.device.type)
+    return (x.dtype in cuda_bias_act.DTYPES and conv.bias.dtype == x.dtype and not autocast
+            and not conv._forward_pre_hooks and not conv._forward_hooks)
+
+
+def conv_act(conv: nn.Module, x: torch.Tensor, act: int) -> torch.Tensor:
+    """`act(conv(x))` for a biased `nn.Conv2d` or `nn.ConvTranspose2d`, `act`
+    the epilogue's number (cuda_bias_act.NONE, RELU, SILU). Where
+    `_epilogue_fusable` allows, the conv runs without its bias and
+    `yololp_torch::bias_act` adds it and applies `act` in one pass (on the
+    card one kernel in place of PyTorch's broadcast add and a separate
+    activation; on the CPU its plain version); else `conv(x)` and the
+    activation, as the train graph needs them. While spans record, counts
+    `conv.biased` and, for the fused, `conv.epilogue_fused`. A conv of
+    another type (an int8 plan's, which has its own epilogue) runs as it is,
+    then `act`."""
+    if not isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)):
+        return _ACT_FNS[act](conv(x))
+    fused = _epilogue_fusable(conv, x)
+    if profiler.recording():
+        profiler.count("conv.biased", 1)
+        if fused:
+            profiler.count("conv.epilogue_fused", 1)
+    if not fused:
+        return _ACT_FNS[act](conv(x))
+    if isinstance(conv, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x, conv.weight, None, conv.stride, conv.padding,
+                               conv.output_padding, conv.groups, conv.dilation)
+    else:
+        y = conv._conv_forward(x, conv.weight, None)
+    return cuda_bias_act.bias_act(y, conv.bias, act)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -108,10 +157,9 @@ class ConvBNAct(nn.Module):
         self.act = _ACTS[act]()
 
     def forward(self, x):
-        y = self.conv(x)
-        if self.bn is not None:
-            y = self.bn(y)
-        return self.act(y)
+        if self.bn is None:
+            return conv_act(self.conv, x, _ACT_CODES[type(self.act)])
+        return self.act(self.bn(self.conv(x)))
 
 
 SimConv = functools.partial(ConvBNAct, act="relu")
@@ -144,7 +192,7 @@ class RepVGGBlock(nn.Module):
 
     def forward(self, x):
         if self.deploy:
-            return F.relu(self.conv(x))
+            return conv_act(self.conv, x, cuda_bias_act.RELU)
         y = self.rbr_dense_bn(self.rbr_dense_conv(x)) + self.rbr_1x1_bn(self.rbr_1x1_conv(x))
         if self.rbr_identity_bn is not None:
             y = y + self.rbr_identity_bn(x)
@@ -203,7 +251,7 @@ class LinearAddBlock(nn.Module):
 
     def forward(self, x):
         if self.deploy:
-            return F.relu(self.conv(x))
+            return conv_act(self.conv, x, cuda_bias_act.RELU)
         y = self.scale_conv(self.conv(x)) + self.scale_1x1(self.conv_1x1(x))
         if self.scale_identity is not None:
             y = y + self.scale_identity(x)
@@ -372,7 +420,7 @@ class Transpose(nn.Module):
                                                      bias=True)
 
     def forward(self, x):
-        return self.upsample_transpose(x)
+        return conv_act(self.upsample_transpose, x, cuda_bias_act.NONE)
 
 
 class BiFusion(nn.Module):

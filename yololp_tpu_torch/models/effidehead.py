@@ -21,8 +21,9 @@ from typing import List, NamedTuple, Sequence
 import torch
 from torch import nn
 
-from yololp_tpu_torch.layers.blocks import ConvBNAct
+from yololp_tpu_torch.layers.blocks import ConvBNAct, conv_act
 from yololp_tpu_torch.ops.anchors import anchor_points_from_shapes
+from yololp_tpu_torch.ops.cuda_bias_act import NONE
 from yololp_tpu_torch.ops.geometry import dist2bbox, dist2cor
 from yololp_tpu_torch.utils.profiler import annotate
 
@@ -84,8 +85,10 @@ class Detect(nn.Module):
         for i, x in enumerate(xs):
             stem = getattr(self, f"stem{i}")(x)
             feats.append(stem)
-            maps.append((getattr(self, f"cls_pred{i}")(getattr(self, f"cls_conv{i}")(stem)),
-                         getattr(self, f"reg_pred{i}")(getattr(self, f"reg_conv{i}")(stem))))
+            maps.append((conv_act(getattr(self, f"cls_pred{i}"),
+                                  getattr(self, f"cls_conv{i}")(stem), NONE),
+                         conv_act(getattr(self, f"reg_pred{i}"),
+                                  getattr(self, f"reg_conv{i}")(stem), NONE)))
         return feats, maps
 
     def forward(self, xs):

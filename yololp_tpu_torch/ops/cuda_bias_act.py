@@ -1,0 +1,110 @@
+"""A conv's bias add and activation in one pass: the CUDA kernel
+csrc/bias_act.cu and its plain PyTorch version.
+
+`bias_act(y, b, act)` calls the custom op `yololp_torch::bias_act`
+(ops/library.py), which runs the kernel on a CUDA tensor and the plain
+version on a CPU tensor; on a CUDA tensor it launches the kernel or raises.
+It returns a new tensor `act(y + b[c])`, with c the channel (dim 1 of the
+NCHW tensor y) and `act` 0 none, 1 ReLU, 2 SiLU. `launches` counts the
+kernel's launches.
+
+The kernel replaces no Pallas kernel: XLA fused this epilogue into its
+convolution on the TPU, while PyTorch's cuDNN route adds the bias in a
+broadcast pass of its own and runs the activation as a third (the deploy
+convs of layers/blocks.py run the conv without its bias, then this op). It
+is bound by bytes, one read and one write of y: 16-byte vectors a thread on
+the flat channels_last array, the channel carried along the vector, the
+bias through the read-only cache (the design is in the source).
+
+Its arithmetic is the unfused path's: y + b in fp32, rounded to y's dtype,
+then the activation in fp32 on that value, rounded again. y is bfloat16 or
+float32, channels_last (the card's layout) or contiguous NCHW, and b its
+dtype; anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from yololp_tpu_torch.ops import _build
+
+NONE, RELU, SILU = 0, 1, 2
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the dtypes the kernel takes, by its number
+
+launches = 0
+
+
+def _check(y: torch.Tensor, b: torch.Tensor, act: int):
+    if y.dim() != 4:
+        raise ValueError(f"y must be a 4-D NCHW tensor, got {tuple(y.shape)}")
+    if y.dtype not in DTYPES or b.dtype != y.dtype:
+        raise TypeError(f"y and b must be one of {list(DTYPES)} alike, got {y.dtype}, "
+                        f"{b.dtype}")
+    if b.dim() != 1 or b.shape[0] != y.shape[1]:
+        raise ValueError(f"b must be ({y.shape[1]},) for y of {y.shape[1]} channels, got "
+                         f"{tuple(b.shape)}")
+    if act not in (NONE, RELU, SILU):
+        raise ValueError(f"act {act} is not one of 0 (none), 1 (ReLU), 2 (SiLU)")
+    if b.device != y.device:
+        raise ValueError(f"y on {y.device}, b on {b.device}")
+    if not b.is_contiguous():
+        raise ValueError("b must be contiguous")
+    if not (y.is_contiguous(memory_format=torch.channels_last) or y.is_contiguous()):
+        raise ValueError(f"y must be channels_last or contiguous, got strides {y.stride()}")
+
+
+def bias_act_plain(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
+    """act(y + b[c]) in plain PyTorch, in the kernel's arithmetic; the
+    output keeps y's layout."""
+    z = (y.float() + b.float().reshape(1, -1, 1, 1)).to(y.dtype)
+    if act == NONE:
+        return z
+    v = z.float()
+    out = torch.where(v < 0, 0.0, v) if act == RELU else v / (1.0 + torch.exp(-v))
+    return out.to(y.dtype)
+
+
+_FN = None
+
+
+def _launcher():
+    """bias_act_launch of the built library, bound once."""
+    global _FN
+    if _FN is None:
+        fn = _build.load("bias_act").bias_act_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def bias_act_cuda(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
+    """Launch csrc/bias_act.cu on CUDA tensors; raise on any refusal."""
+    global launches
+    _check(y, b, act)
+    if y.device.type != "cuda":
+        raise ValueError(f"the kernel takes cuda tensors, got {y.device}")
+    out = torch.empty_like(y)
+    if y.numel() == 0:
+        return out
+    # channel of flat element e: (e / inner) % C
+    inner = 1 if y.is_contiguous(memory_format=torch.channels_last) else y.shape[2] * y.shape[3]
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    # the launcher sets its device: the guard puts the caller's back after
+    with torch.cuda.device(y.device):
+        err = _launcher()(y.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(), y.shape[1],
+                          inner, DTYPES[y.dtype], int(act), y.device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"bias_act kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+def bias_act(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
+    """act(y + b[c]) through the op `yololp_torch::bias_act`: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    return torch.ops.yololp_torch.bias_act(y, b, int(act))

@@ -1,4 +1,4 @@
-"""The three kernels as custom ops of one namespace, `yololp_torch`.
+"""The four kernels as custom ops of one namespace, `yololp_torch`.
 
 `torch.export` and AOTInductor cannot trace a ctypes call on `data_ptr()`,
 and the plain NMS loops on data, so each kernel is registered as an op that
@@ -8,6 +8,7 @@ the tracer sees as one opaque node:
     yololp_torch::int8_conv         ops/cuda_conv.py  csrc/int8_conv.cu
     yololp_torch::matmul            ops/cuda_matmul.py csrc/mxu_matmul.cu
     yololp_torch::matmul_nt         ops/cuda_matmul.py csrc/mxu_matmul.cu
+    yololp_torch::bias_act          ops/cuda_bias_act.py csrc/bias_act.cu
 
 Each op has three implementations, chosen by the dispatcher from the
 device of its tensors: CUDA is the kernel's launcher (`*_cuda`, which checks
@@ -15,8 +16,8 @@ its inputs and raises on any refusal), CPU is the kernel's plain version (the
 CPU's kernel, not a fallback), and a fake one gives the output's shape, dtype
 and strides without reading data. The wrappers the call sites use
 (`cuda_nms.greedy_nms_mask`, `cuda_conv.int8_conv`, `cuda_matmul.matmul`,
-`cuda_matmul.matmul_nt`) call the ops, so eager runs and exported programs
-reach each kernel through one entry point.
+`cuda_matmul.matmul_nt`, `cuda_bias_act.bias_act`) call the ops, so eager
+runs and exported programs reach each kernel through one entry point.
 
 `int8_conv` takes its output dtype as the kernel's mode number (`out_mode`:
 0 int8, 1 float32, 2 bfloat16, 3 int32; `cuda_conv.out_mode`), not as a
@@ -38,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
+from yololp_tpu_torch.ops import cuda_bias_act, cuda_conv, cuda_matmul, cuda_nms
 
 NAMESPACE = "yololp_torch"
 SCHEMAS = {
@@ -47,6 +48,7 @@ SCHEMAS = {
                   "int out_mode) -> Tensor"),
     "matmul": "matmul(Tensor a, Tensor b) -> Tensor",
     "matmul_nt": "matmul_nt(Tensor a, Tensor b_t) -> Tensor",
+    "bias_act": "bias_act(Tensor y, Tensor b, int act) -> Tensor",
 }
 
 
@@ -100,11 +102,22 @@ def _mm_nt_fake(a, b_t):
     return a.new_empty((a.shape[0], b_t.shape[0]), dtype=cuda_matmul._MODES[a.dtype][1])
 
 
+def _bias_act_cpu(y, b, act):
+    cuda_bias_act._check(y, b, act)
+    return cuda_bias_act.bias_act_plain(y, b, act)
+
+
+def _bias_act_fake(y, b, act):
+    cuda_bias_act._check(y, b, act)
+    return torch.empty_like(y)
+
+
 _IMPLS = {
     "greedy_nms_mask": (_nms_cpu, cuda_nms.greedy_nms_mask_cuda, _nms_fake),
     "int8_conv": (_conv_cpu, _conv_cuda, _conv_fake),
     "matmul": (_mm_cpu, cuda_matmul.matmul_cuda, _mm_fake),
     "matmul_nt": (_mm_nt_cpu, cuda_matmul.matmul_nt_cuda, _mm_nt_fake),
+    "bias_act": (_bias_act_cpu, cuda_bias_act.bias_act_cuda, _bias_act_fake),
 }
 
 # the registrations live as long as this module (one per process: a second

@@ -20,7 +20,8 @@ rows:
   * ConvTranspose2d(k=2, s=2): no halo, a band's rows double. Any other
     transposed geometry raises.
 
-Any other call must keep every row to itself (`_ROW_LOCAL`, a cat along
+Any other call must keep every row to itself (`_ROW_LOCAL`, among them the
+deploy convs' epilogue op `yololp_torch::bias_act`, a cat along
 channels, BN in eval mode), or it raises: nothing gathers the whole image to
 run an op.
 
@@ -74,7 +75,8 @@ BARRIER_TIMEOUT_S = 600.0
 _T = torch.Tensor
 # calls that keep every row to itself
 _ROW_LOCAL = {F.relu, torch.relu, F.silu, torch.sigmoid, _T.sigmoid, torch.add, torch.mul,
-              _T.add, _T.mul, _T.__add__, _T.__radd__, _T.__mul__, _T.__rmul__, _T.dim, _T.size}
+              _T.add, _T.mul, _T.__add__, _T.__radd__, _T.__mul__, _T.__rmul__, _T.dim, _T.size,
+              torch.ops.yololp_torch.bias_act}
 # tensor attributes read under the mode (a getset descriptor's __get__)
 _ATTRIBUTES = {"dtype", "shape", "device", "ndim", "is_cuda", "layout", "grad_fn",
                "requires_grad"}
