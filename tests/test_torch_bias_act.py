@@ -215,7 +215,8 @@ def test_a_deploy_forward_counts_every_biased_conv_fused(name, biased):
     batch = np.random.default_rng(0).integers(0, 255, (1, 64, 64, 3), np.uint8)
     with profile(activities=[ProfilerActivity.CPU]):
         inferer.predict(batch)
-    assert P.counters() == {"conv.biased": biased, "conv.epilogue_fused": biased}
+    assert P.counters() == {"conv.biased": biased, "conv.epilogue_fused": biased,
+                            "decode.anchors": 8 * 8 + 4 * 4 + 2 * 2}
     assert S.reader("conv_epilogue_fused.serve")({}) == 100.0
 
 
@@ -232,4 +233,5 @@ def test_the_reader_reads_a_share_and_nothing_from_an_empty_store():
     m = {x["name"]: x for x in S.load(ROOT)["per_layer"]}["conv_epilogue_fused.serve"]
     assert (m["source"], m["layer"], m["moves"], m["unit"]) == (
         "program_counter", "model step", "images_per_s", "%")
-    assert m["workloads"] == ["yololps-b128-dense", "yolov6m-b128-dense"]
+    assert m["workloads"] == ["yololps-b128-dense", "yolov6m-b128-dense",
+                              "yolov6l6-b32-1280-dense"]

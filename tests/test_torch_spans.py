@@ -4,9 +4,10 @@ profiler off; under torch.profiler `Inferer._run` records each span of the
 served path once, nested by parent and request ids, inside the profiler's
 own ranges (one clock); the NMS counters read exactly; the outputs are the
 same bits recording or not; the benchmark's readers of the spans and
-counters read a filled store and nothing from an empty one; an exported
-graph holds no profiler op; threads recording at once keep their own
-requests. A card is stood in for by fake CUDA events where a device time
+counters read a filled store and nothing from an empty one; a P6 model
+records its three stride-64 spans, nested in the model's, where a P5 model
+records none, and both count B x A decoded anchors; an exported graph holds
+no profiler op; threads recording at once keep their own requests. A card is stood in for by fake CUDA events where a device time
 is needed. And the inferer's FPS is images over seconds."""
 
 import json
@@ -46,6 +47,11 @@ READERS = {  # the benchmark's new readers -> the span each reads
     "nms_topk_ms.serve": "nms.topk", "nms_keep_ms.serve": "nms.keep",
     "nms_compact_ms.serve": "nms.compact",
 }
+P6_SPANS = {  # the P6 models' spans -> the span each nests in
+    "model.backbone.p6": "model.backbone", "model.neck.p6": "model.neck",
+    "model.head.p6": "model.head",
+}
+CELLS = ["yololps-b128-dense", "yolov6m-b128-dense", "yolov6l6-b32-1280-dense"]
 
 
 def recording():
@@ -62,6 +68,12 @@ def empty_store():
 @pytest.fixture(scope="module")
 def inferer():
     return Inferer(None, None, "yololpn", img_size=64, half=False, conf_thres=0.0, max_det=20,
+                   device="cpu")
+
+
+@pytest.fixture(scope="module")
+def inferer_p6():
+    return Inferer(None, None, "yolov6n6", img_size=128, half=False, conf_thres=0.0, max_det=20,
                    device="cpu")
 
 
@@ -162,6 +174,31 @@ def test_run_records_each_span_once_by_parent_and_request(inferer, batch):
     totals = P.span_totals()
     assert {k: v["count"] for k, v in totals.items()} == {k: 2 for k in SERVED}
     assert all(v["device_count"] == 0 and v["device_s"] is None for v in totals.values())
+
+
+@pytest.mark.parametrize("name", ["yololpn", "yolov6n6"])
+def test_the_p6_spans_nest_in_the_models_and_the_decode_counts_its_anchors(
+        name, inferer, inferer_p6):
+    inf = inferer_p6 if name == "yolov6n6" else inferer
+    size = inf.img_size[0]
+    batch = np.random.default_rng(1).integers(0, 255, (2, size, size, 3), np.uint8)
+    with recording():
+        inf._run(batch)
+        inf._run(batch)
+    spans = P.spans()
+    ids = {s["id"]: s["name"] for s in spans}
+    p6 = [s for s in spans if s["name"] in P6_SPANS]
+    if name == "yololpn":
+        assert p6 == [] and len(spans) == 2 * len(SERVED)
+    else:
+        assert Counter(s["name"] for s in p6) == {k: 2 for k in P6_SPANS}  # once a forward
+        assert all(ids[s["parent"]] == P6_SPANS[s["name"]] for s in p6)
+        assert len(spans) == 2 * (len(SERVED) + len(P6_SPANS))
+    anchors = sum((size // s) ** 2 for s in inf.model.detect.strides)
+    assert anchors == (340 if name == "yolov6n6" else 84)
+    assert P.counters()["decode.anchors"] == 2 * 2 * anchors
+    rec = {"batch": 2, "trace": {"iters": 2}}
+    assert S.reader("decode_anchors.serve")(rec) == anchors
 
 
 def test_each_chrome_trace_range_holds_its_span(inferer, batch, tmp_path):
@@ -290,15 +327,47 @@ def test_slot_use_reader_reads_nothing_from_an_empty_store():
     assert S.reader("nms_slot_use.serve")({}) is None
 
 
+def test_p6_reader_sums_the_three_spans_and_reads_nothing_without_them(fake_card):
+    read = S.reader("p6_ms.serve")
+    assert read({}) is None
+    with recording():  # a P5 forward: the model's spans, none of the P6 ones
+        for name in ("model.backbone", "model.neck", "model.head"):
+            with P.annotate(name, fake_card):
+                time.sleep(0.001)
+    assert read({}) is None
+    with recording():
+        for _ in range(2):
+            for name in P6_SPANS:
+                with P.annotate(name, fake_card):
+                    time.sleep(0.001)
+    t = P.span_totals()
+    assert read({}) == pytest.approx(sum(t[n]["device_s"] / 2 * 1e3 for n in P6_SPANS))
+    assert read({}) >= 3.0
+
+
+def test_anchor_reader_reads_the_counter_an_image_and_nothing_without_it():
+    read = S.reader("decode_anchors.serve")
+    rec = {"batch": 4, "trace": {"iters": 2}}
+    assert read(rec) is None
+    with recording():
+        P.count("nms.slots", 8)
+    assert read(rec) is None
+    with recording():
+        for _ in range(2):
+            P.count("decode.anchors", 4 * 34000)
+    assert read(rec) == 34000
+    assert read({"batch": 4}) is None  # no profiled slice
+
+
 def test_the_readers_are_the_benchmarks_per_layer_metrics():
     spec = S.load(ROOT)
     names = {m["name"]: m for m in spec["per_layer"]}
-    for metric in [*READERS, "nms_slot_use.serve"]:
+    counted = ("nms_slot_use.serve", "decode_anchors.serve")
+    for metric in [*READERS, *counted, "p6_ms.serve"]:
         m = names[metric]
         assert m["moves"] == "images_per_s"
-        assert m["source"] == ("program_counter" if metric == "nms_slot_use.serve"
-                               else "program_span")
-        assert m["workloads"] == ["yololps-b128-dense", "yolov6m-b128-dense"]
+        assert m["source"] == ("program_counter" if metric in counted else "program_span")
+        assert m["workloads"] == (CELLS[2:] if metric == "p6_ms.serve" else CELLS)
 
 
 class NMSModule(torch.nn.Module):

@@ -81,7 +81,6 @@ class Inferer:
             config = (Config.fromfile(config) if config.endswith(".py")
                       else Config.named(config))
         self.config = config
-        self.img_size = check_img_size(img_size, 32)
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
         self.max_det = max_det
@@ -104,6 +103,8 @@ class Inferer:
         self.variables = {k: v.detach().clone() for k, v in model.state_dict().items()}
         self.model = model.to(self.device, self.dtype).to(
             memory_format=torch.channels_last).eval()
+        # a multiple of the deepest level's stride: 64 for the P6 heads
+        self.img_size = check_img_size(img_size, max(model.detect.strides))
         self.source = source
         self.fps_calc = CalcFPS()
 

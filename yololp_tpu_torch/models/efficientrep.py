@@ -5,11 +5,13 @@ Stem (stride-2 block), then ERBlock_2..5 (..6 for P6): each a stride-2
 block and a stage, a RepBlock ('{stage}_rep') or, in the CSP backbones, a
 BepC3 ('{stage}_csp'); the deepest stage appends an SPPF variant. With
 fuse_P2 the stride-4 ERBlock_2 output is emitted too (used by the BiFPAN
-necks).
+necks). In the P6 backbones the stride-64 stage (ERBlock_6's down block,
+stage and SPPF) is the span `model.backbone.p6` (utils/profiler.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 from torch import nn
@@ -24,6 +26,7 @@ from yololp_tpu_torch.layers.blocks import (
     SimCSPSPPF,
     SimSPPF,
 )
+from yololp_tpu_torch.utils.profiler import annotate
 
 
 def _sppf_cls(block, cspsppf: bool):
@@ -71,10 +74,12 @@ class _Backbone(nn.Module):
         x = self.stem(x)
         kind = "_csp" if self.CSP else "_rep"
         for stage in self.stages:
-            x = getattr(self, f"{stage}_down")(x)
-            x = getattr(self, stage + kind)(x)
-            if stage == self.stages[-1]:
-                x = getattr(self, f"{stage}_sppf")(x)
+            with (annotate("model.backbone.p6", x.device) if stage == "ERBlock_6"
+                  else contextlib.nullcontext()):
+                x = getattr(self, f"{stage}_down")(x)
+                x = getattr(self, stage + kind)(x)
+                if stage == self.stages[-1]:
+                    x = getattr(self, f"{stage}_sppf")(x)
             if stage != "ERBlock_2" or self.fuse_P2:
                 outputs.append(x)
         return tuple(outputs)

@@ -10,11 +10,14 @@ The eval output is the 290-column tensor
 [bbox_xywh(4), obj(=1), corners(8), pro(31), alp(24), ads(6*37)] per anchor.
 In training mode the head returns `HeadTrainOutput` instead. Maps are
 permuted to NHWC before flattening, so anchors run H-then-W as in the JAX
-head and ops/anchors.py; the sigmoid and the decode run in fp32.
+head and ops/anchors.py; the sigmoid and the decode run in fp32. The
+stride-64 level of a 4-level head is the span `model.head.p6`, and each
+decode adds B x A to the counter `decode.anchors` (utils/profiler.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, NamedTuple, Sequence
 
@@ -25,6 +28,7 @@ from yololp_tpu_torch.layers.blocks import ConvBNAct, conv_act
 from yololp_tpu_torch.ops.anchors import anchor_points_from_shapes
 from yololp_tpu_torch.ops.cuda_bias_act import NONE
 from yololp_tpu_torch.ops.geometry import dist2bbox, dist2cor
+from yololp_tpu_torch.utils import profiler
 from yololp_tpu_torch.utils.profiler import annotate
 
 PRIOR_PROB = 1e-2
@@ -83,12 +87,14 @@ class Detect(nn.Module):
         at the level's resolution: the head's every op that mixes rows."""
         feats, maps = [], []
         for i, x in enumerate(xs):
-            stem = getattr(self, f"stem{i}")(x)
+            # level 3 is the P6 heads' stride-64 level
+            with annotate("model.head.p6", x.device) if i == 3 else contextlib.nullcontext():
+                stem = getattr(self, f"stem{i}")(x)
+                maps.append((conv_act(getattr(self, f"cls_pred{i}"),
+                                      getattr(self, f"cls_conv{i}")(stem), NONE),
+                             conv_act(getattr(self, f"reg_pred{i}"),
+                                      getattr(self, f"reg_conv{i}")(stem), NONE)))
             feats.append(stem)
-            maps.append((conv_act(getattr(self, f"cls_pred{i}"),
-                                  getattr(self, f"cls_conv{i}")(stem), NONE),
-                         conv_act(getattr(self, f"reg_pred{i}"),
-                                  getattr(self, f"reg_conv{i}")(stem), NONE)))
         return feats, maps
 
     def forward(self, xs):
@@ -113,6 +119,8 @@ class Detect(nn.Module):
 
         wide = torch.promote_types(cls_flat[0].dtype, torch.float32)  # fp32; float64 stays
         cls_scores = torch.sigmoid(torch.cat(cls_flat, 1).to(wide))
+        if profiler.recording():
+            profiler.count("decode.anchors", cls_scores.shape[0] * cls_scores.shape[1])
         reg_distri = torch.cat(reg_flat, 1).to(wide)
         cor_distri = torch.cat(cor_flat, 1).to(wide)
         if self.training:

@@ -6,7 +6,9 @@ merged with the next shallower backbone map: by a ConvTranspose then a
 concat (the PAN necks), or by a BiFusion that also takes the map one level
 shallower at stride 2 (the BiFPAN necks, which consume P2). Then stride-2
 SimConvs go bottom-up, each concatenated with the reduced map of its level.
-Every stage is a RepBlock, or a BepC3 in the CSP necks.
+Every stage is a RepBlock, or a BepC3 in the CSP necks. In the P6 necks
+the bottom-up step that makes the stride-64 output (downsample0, Rep_n6) is
+the span `model.neck.p6` (utils/profiler.py).
 
 channels_list is the scaled concatenation of the backbone's 5 (6 for P6)
 and the neck's 6 out_channels, indexed as in the JAX package.
@@ -14,6 +16,7 @@ and the neck's 6 out_channels, indexed as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Sequence
 
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from yololp_tpu_torch.layers.blocks import BepC3, BiFusion, RepBlock, RepVGGBlock, SimConv, Transpose
+from yololp_tpu_torch.utils.profiler import annotate
 
 
 class _Neck(nn.Module):
@@ -86,7 +90,10 @@ class _Neck(nn.Module):
             x = getattr(self, name)(merged)
         outs = [x]
         for j, (down, rep) in enumerate(self.bottom):
-            x = getattr(self, rep)(torch.cat([getattr(self, down)(x), fpn[-1 - j]], 1))
+            # downsample0 is the P6 necks' stride-64 step
+            with (annotate("model.neck.p6", x.device) if down == "downsample0"
+                  else contextlib.nullcontext()):
+                x = getattr(self, rep)(torch.cat([getattr(self, down)(x), fpn[-1 - j]], 1))
             outs.append(x)
         return outs
 
