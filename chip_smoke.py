@@ -15,8 +15,9 @@ toolkit. Phases, each of which raises on failure:
      crosses every band of rows (and every block of the kernel's cluster);
   4. the main path: yololps at full width, every parameter drawn from a seeded
      generator, fused to the deploy graph, `Inferer.detect_batch` on 32 BGR
-     frames at 640x640 and 360x640 (pad only, no cv2), with the kernel's launch
-     count read around that call; then the card's (32, 8400, 290) decode
+     frames at 640x640 and 360x640 (pad only, no cv2), with the launch counts
+     of the greedy-NMS kernel and of the NMS gate kernel (once a batch) read
+     around that call; then the card's (32, 8400, 290) decode
      through the plain NMS on the CPU (exact equality), and one image in fp32
      with TF32 off on the card against the port on the CPU;
   5. times, by CUDA events: end-to-end img/s at batch 32 in bf16 and fp32, a
@@ -250,7 +251,18 @@ toolkit. Phases, each of which raises on failure:
      the kernel's time alone summed over a forward beside the bound (twice
      the conv outputs' bytes over 3.35 TB/s), the plain version's and the
      unfused sequence's, its device time in a profiled forward, and both
-     forwards' times and profiles.
+     forwards' times and profiles;
+  27. the NMS gate kernel (csrc/nms_gate.cu) against its plain version on
+     the card, every output bit for bit (box, score, rest, passed): the
+     served yololps b128 decode (8400 anchors) and synthetic decodes of the
+     cells' shapes (128 x 8400, 32 x 34000), exact ties inside a task, NaN
+     rows, scores at fp32(conf_thres) and its two neighbours (thresholds
+     0.4, 0.7, 0.25), compat_ad4_bug on and off, an odd row count and an
+     offset (not 16-byte aligned) view; `non_max_suppression` with the op
+     against the plain gate; an exported program holds one `nms_gate` node
+     and launches it once, its AOTInductor program none; the kernel's time
+     alone (CUDA events, 100 launches) and in a device trace beside its
+     bytes' bound, the plain version's, and the NMS stage with each.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -3755,15 +3767,19 @@ def check_epilogue(y, b, act, what):
     return ulps, differ
 
 
-def epilogue_device_ms(fn, bound_ms):
-    """The epilogue kernel's device ms a call of `fn` by torch.profiler; a
-    reading under the bytes' bound means the profiling session lost
-    launches (CUPTI dropped some late in a full run of this script on the
-    H100), so it is taken again, up to 3 times, else None (not measured)."""
+def profiled_device_ms(fn, name, bound_ms, calls=10):
+    """The device ms a call of `fn` in the kernels named `name`, by
+    torch.profiler; a session that records none of them, or a reading under
+    the bytes' bound, means the profiling session lost launches (CUPTI drops
+    some, or all, late in a full run of this script on the H100), so it is
+    taken again, up to 3 times, else None (not measured)."""
     from yololp_tpu_torch.utils.profiler import kernel_device_ms
 
     for _ in range(3):
-        ms = kernel_device_ms(fn, "bias_act_kernel")
+        try:
+            ms = kernel_device_ms(fn, name, calls=calls)
+        except RuntimeError:  # no launch recorded in any of its sessions
+            continue
         if ms >= bound_ms:
             return ms
     return None
@@ -3832,8 +3848,8 @@ def phase_bias_act(results, card, dev):
             size = 2 * y.numel() * y.element_size()
             t = dict(kernel=float(np.median(cuda_ms(lambda: cuda_bias_act.bias_act(y, b, act),
                                                     10, 3))),
-                     device=epilogue_device_ms(lambda: cuda_bias_act.bias_act(y, b, act),
-                                               size / HBM_BYTES_S * 1e3),
+                     device=profiled_device_ms(lambda: cuda_bias_act.bias_act(y, b, act),
+                                               "bias_act_kernel", size / HBM_BYTES_S * 1e3),
                      plain=float(np.median(cuda_ms(
                          lambda: cuda_bias_act.bias_act_plain(y, b, act), 2, 3))),
                      library=float(np.median(cuda_ms(lambda: unfused_epilogue(y, b, act),
@@ -3918,6 +3934,206 @@ def phase_bias_act(results, card, dev):
     return out
 
 
+# ---------------- phase 27: the NMS gate (csrc/nms_gate.cu) ----------------
+
+GATE_SHAPES = {"yololps/yolov6m b128": (128, 8400), "yolov6l6 b32 1280": (32, 34000)}
+GATE_THRESHOLDS = (0.4, 0.7, 0.25)  # fp32 rounds the first up, the second down; exact
+
+
+def gate_decode(b, a, gen, dev):
+    """A synthetic (b, a, 290) fp32 decode on `dev`: boxes in pixels, obj 1,
+    corners, sigmoid scores."""
+    xy = torch.rand(b, a, 2, generator=gen, device=dev) * 640
+    wh = torch.rand(b, a, 2, generator=gen, device=dev) * 100 + 1
+    corners = torch.rand(b, a, 8, generator=gen, device=dev) * 640
+    cls = torch.sigmoid(torch.randn(b, a, 277, generator=gen, device=dev) * 3 - 2)
+    return torch.cat([xy, wh, torch.ones(b, a, 1, device=dev), corners, cls], -1).contiguous()
+
+
+def gate_edge_decode(gen, dev, thres):
+    """A (2, 96, 290) decode: rows 0-23 with exact ties inside each task, rows
+    24-31 with NaNs (a score, two in one task, obj, all scores, a box
+    coordinate), rows 32-55 whose score is exactly fp32(thres) or one of its
+    two fp32 neighbours (task maxima v, v, 2v, 0, 4v, 0, 0, 0: exact partial
+    sums in either gate)."""
+    tasks = [(0, 31), (31, 24)] + [(55 + 37 * i, 37) for i in range(6)]
+    pred = gate_decode(2, 96, gen, dev)
+    for row in range(24):
+        for k, (s, w) in enumerate(tasks):
+            at = torch.randperm(w, generator=gen, device=dev)[: 2 + (row + k) % 3]
+            pred[:, row, 13 + s + at] = 0.9 - 0.001 * k
+    nan = float("nan")
+    pred[:, 24, 13 + 31 + 5] = nan
+    pred[:, 25, 13 + 2] = nan
+    pred[:, 25, 13 + 9] = nan
+    pred[:, 26, 4] = nan
+    pred[:, 27, 13:] = nan
+    pred[:, 28, 0] = nan
+    pred[:, 29, 289] = nan
+    t32 = np.float32(thres)
+    for i, v in enumerate((np.nextafter(t32, np.float32(0)), t32,
+                           np.nextafter(t32, np.float32(1)))):
+        for j in range(8):
+            row = 32 + 8 * i + j
+            pred[:, row, 13:] = 0.0
+            for (s, w), scale in zip(tasks, (1, 1, 2, 0, 4, 0, 0, 0)):
+                pred[:, row, 13 + s + (j * 5) % w] = float(v) * scale
+    return pred
+
+
+def gate_equal(pred, thres, compat, what):
+    """Raise unless the kernel's four outputs equal the plain version's on
+    the card bit for bit (floats compared as their bits, so NaN too). Returns
+    the rows that passed the gate and the largest |kernel - plain| over the
+    float outputs (0 where the bits agree, inf where one side is NaN)."""
+    from yololp_tpu_torch.ops import cuda_nms_gate
+
+    got = cuda_nms_gate.nms_gate(pred, thres, compat)
+    want = cuda_nms_gate.nms_gate_plain(pred, thres, compat)
+    err = 0.0
+    for name, g, w in zip(("box", "score", "rest", "passed"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"nms_gate {what}: {name} is {tuple(g.shape)} {g.dtype}, the "
+                                 f"plain version's {tuple(w.shape)} {w.dtype}")
+        gb = g.view(torch.int32) if g.dtype == torch.float32 else g
+        wb = w.view(torch.int32) if w.dtype == torch.float32 else w
+        if g.dtype == torch.float32 and g.numel():
+            diff = (g - w).abs().nan_to_num(nan=float("inf"))
+            err = max(err, float(torch.where(gb == wb, 0.0, diff).max()))
+        if not torch.equal(gb, wb):
+            raise AssertionError(f"nms_gate {what} (thres {thres}, compat {compat}): {name} "
+                                 f"differs from the plain version in {int((gb != wb).sum())} "
+                                 f"elements, by up to {err}")
+    return int(got[3].sum()), err
+
+
+def phase_nms_gate(results, card, dev):
+    """27. The NMS gate kernel (csrc/nms_gate.cu): bit for bit against its
+    plain version on the card, on the served yololps b128 decode, the cells'
+    shapes and the edge cases; the NMS stage with it against the plain gate;
+    an exported program's nodes and launches; times alone and on device
+    beside the bytes' bound (see the module docstring)."""
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.export.export import inductor_program
+    from yololp_tpu_torch.layers.fuse import fuse_model
+    from yololp_tpu_torch.ops import cuda_nms, cuda_nms_gate
+    from yololp_tpu_torch.ops import nms as nms_mod
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    out = {"cases": {}, "shapes": {}}
+    errs = []
+
+    def check(pred, thres, compat, what):
+        passed, err = gate_equal(pred, thres, compat, what)
+        errs.append(err)
+        return passed
+
+    # the edge cases, the odd row count and the offset view
+    for thres in GATE_THRESHOLDS:
+        edge = gate_edge_decode(gen, dev, thres)
+        for compat in (False, True):
+            out["cases"][f"edge {thres} {compat}"] = check(edge, thres, compat, "edges")
+    odd = gate_decode(3, 517, gen, dev)
+    out["cases"]["odd rows"] = check(odd, 0.5, False, "3 x 517")
+    flat = gate_decode(1, 2 * 1000, gen, dev).view(-1)
+    view = flat[290 + 1: 290 + 1 + 3 * 333 * 290].view(3, 333, 290)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    out["cases"]["offset view"] = check(view, 0.5, True, "offset view")
+
+    # the served decode: yololps at 640, every parameter seeded, b128
+    cfg, train = zoo_model("yololps", SEED + 27)
+    inf = Inferer(".", fuse_model(train).state_dict(), cfg, img_size=IMG, half=True,
+                  iou_thres=0.45, max_det=300, device=dev)
+    del train
+    rng = np.random.default_rng(SEED + 27)
+    served = inf.predict(rng.integers(0, 256, (EPILOGUE_BATCH, IMG, IMG, 3), np.uint8))
+    del inf
+    median = float(cuda_nms_gate.nms_gate_plain(served, 0.0, False)[1].median())
+    for thres in (0.4, median):
+        for compat in (False, True):
+            out["cases"][f"served b128 {thres:.6g} {compat}"] = check(
+                served, thres, compat, "served yololps b128")
+
+    nkw = dict(conf_thres=median, iou_thres=0.45, max_det=300)
+    (det, valid, num), (gate_n, nms_n) = counted(
+        lambda: nms_mod.non_max_suppression(served, **nkw), cuda_nms_gate, cuda_nms)
+    # the stage as it ran before the op: the plain gate in the op's place, on the card
+    op = cuda_nms_gate.nms_gate
+    cuda_nms_gate.nms_gate = cuda_nms_gate.nms_gate_plain
+    try:
+        (p_det, p_valid, p_num), (p_gate_n, _) = counted(
+            lambda: nms_mod.non_max_suppression(served, **nkw), cuda_nms_gate, cuda_nms)
+        plain_stage_ms = float(np.median(cuda_ms(
+            lambda: nms_mod.non_max_suppression(served, **nkw), 10, 5)))
+    finally:
+        cuda_nms_gate.nms_gate = op
+    stage_ms = float(np.median(cuda_ms(lambda: nms_mod.non_max_suppression(served, **nkw),
+                                       10, 5)))
+    if (gate_n, nms_n, p_gate_n) != (1, 1, 0) or not all(
+            torch.equal(a, b) for a, b in ((det, p_det), (valid, p_valid), (num, p_num))):
+        raise AssertionError(f"non_max_suppression: gate launches {gate_n} (plain {p_gate_n}), "
+                             f"greedy {nms_n}; equal to the plain gate's: "
+                             f"{[torch.equal(a, b) for a, b in ((det, p_det), (valid, p_valid))]}")
+    out["nms_stage"] = dict(ms=stage_ms, plain_gate_ms=plain_stage_ms, kept=num.tolist()[:8])
+    print(f"[{card}] phase 27: {len(out['cases'])} cases bit for bit (max |diff| "
+          f"{max(errs)}; passed rows "
+          f"{out['cases']}); non_max_suppression on the served b128 decode at gate "
+          f"{median:.6g}: one nms_gate and one greedy_nms launch, det/valid/num == the plain "
+          f"gate's; the stage {stage_ms:.3f} ms (plain gate {plain_stage_ms:.3f} ms)",
+          flush=True)
+
+    # export: one node in the program and one launch from it; none after the decomposition
+    class StageOnly(torch.nn.Module):
+        def forward(self, p):
+            return nms_mod.non_max_suppression(p, **nkw)
+
+    small = served[:4].contiguous()
+    with torch.no_grad():
+        prog = torch.export.export(StageOnly(), (small,))
+    n_node = sum("yololp_torch.nms_gate" in str(n.target) for n in prog.graph.nodes)
+    n_inductor = sum("nms_gate" in str(n.target) for n in inductor_program(prog).graph.nodes)
+    got, (n_launch,) = counted(lambda: torch.no_grad()(prog.module())(small), cuda_nms_gate)
+    want = StageOnly()(small)
+    if (n_node, n_inductor, n_launch) != (1, 0, 1) or not all(
+            torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"export: {n_node} nms_gate nodes, {n_inductor} after "
+                             f"inductor_program, {n_launch} launches")
+    out["export"] = dict(nodes=n_node, inductor_nodes=n_inductor, launches=n_launch)
+    del served, det, p_det
+
+    # the cells' shapes: bit for bit, then times beside the bound
+    for label, (b, a) in GATE_SHAPES.items():
+        pred = gate_decode(b, a, gen, dev)
+        passed = check(pred, 0.4, False, label)
+        check(pred, 0.4, True, label)
+        rows = b * a
+        nbytes = rows * (290 * 4 + 4 * 4 + 4 + 24 * 4 + 1)
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        fn = lambda: cuda_nms_gate.nms_gate(pred, 0.4, False)  # noqa: E731
+        for _ in range(3):
+            fn()
+        alone = float(np.median(cuda_ms(fn, 100, 5)))
+        device = profiled_device_ms(fn, "nms_gate_kernel", bound_ms, calls=20)
+        plain = float(np.median(cuda_ms(lambda: cuda_nms_gate.nms_gate_plain(pred, 0.4, False),
+                                        5, 3)))
+        out["shapes"][label] = dict(batch=b, anchors=a, bytes=nbytes, bound_ms=bound_ms,
+                                    alone_ms=alone, device_ms=device, plain_ms=plain,
+                                    share_alone=bound_ms / alone,
+                                    share_device=device and bound_ms / device, passed=passed)
+        on_device = ("not measured (the profiler lost launches)" if device is None else
+                     f"{device:.4f} ms ({100 * bound_ms / device:.1f}%)")
+        print(f"[{card}] phase 27 {label} ({b} x {a}): bit for bit; {nbytes / 1e9:.4f} GB, "
+              f"bound {bound_ms:.4f} ms; kernel alone {alone:.4f} ms "
+              f"({100 * bound_ms / alone:.1f}% of bound), device {on_device}; "
+              f"plain {plain:.3f} ms", flush=True)
+        del pred
+    out["max_abs_err"] = max(errs)
+    out["seconds"] = time.perf_counter() - t_phase
+    results["nms_gate"] = out
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the measurements to this JSON file")
@@ -3929,7 +4145,7 @@ def main():
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
     from yololp_tpu_torch.models.yolo import build_model
-    from yololp_tpu_torch.ops import _build, cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops import _build, cuda_conv, cuda_nms, cuda_nms_gate
     from yololp_tpu_torch.ops.nms import non_max_suppression, select_candidates
     from yololp_tpu_torch.utils.config import Config
 
@@ -3974,12 +4190,15 @@ def main():
     inferer.conf_thres = float(score_all[:, min(2 * TOPK, anchors) - 1].min())
     inferer.warmup()
 
-    cuda_nms.launches = 0
+    cuda_nms.launches = cuda_nms_gate.launches = 0
     dets = inferer.detect_batch(imgs)
     torch.cuda.synchronize()
-    launches = cuda_nms.launches
+    launches, gate_launches = cuda_nms.launches, cuda_nms_gate.launches
     if launches < 1:
         raise AssertionError("the main path did not launch the greedy_nms kernel")
+    if gate_launches != 1:
+        raise AssertionError(f"the main path launched the nms_gate kernel {gate_launches} "
+                             "times for one batch, not once")
     k = min(TOPK, anchors)
     n_max = min(inferer.max_det, k)
     for d in dets:
@@ -3988,8 +4207,8 @@ def main():
     if len(dets) != BATCH or min(len(d) for d in dets) == 0:
         raise AssertionError("an image came back without detections")
     print(f"main path: yololps {IMG}px bf16, batch {BATCH}, conf_thres {inferer.conf_thres:.6f}, "
-          f"greedy_nms launches {launches}, detections per image "
-          f"{min(map(len, dets))}..{max(map(len, dets))}")
+          f"greedy_nms launches {launches}, nms_gate launches {gate_launches}, detections per "
+          f"image {min(map(len, dets))}..{max(map(len, dets))}")
 
     if pred.shape != (BATCH, anchors, 290) or pred.dtype != torch.float32:
         raise AssertionError(f"decode {tuple(pred.shape)} {pred.dtype}")
@@ -4022,7 +4241,7 @@ def main():
           f"{float(p_cpu[..., :13].abs().max()):.4g}), {err_score:.3g} score; "
           f"tolerance rtol {FP32_RTOL} + {FP32_ATOL_PX} px, {FP32_ATOL_SCORE} score")
     results.update(fp32_err_px=err_px, fp32_err_score=err_score, launches=launches,
-                   conf_thres=inferer.conf_thres)
+                   gate_launches=gate_launches, conf_thres=inferer.conf_thres)
 
     # 5. times
     for label, inf in (("bf16", inferer), ("fp32", inferer32)):
@@ -4104,6 +4323,9 @@ def main():
     # 26. the deploy convs' epilogue kernel at the benchmark cells' shapes
     epilogue = phase_bias_act(results, card, dev)
 
+    # 27. the NMS gate kernel at the benchmark cells' shapes
+    gate = phase_nms_gate(results, card, dev)
+
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
@@ -4157,7 +4379,17 @@ def main():
                 "export_launches": {k: export[k]["launches_pt2"][2] for k in ("bf16", "int8")},
                 "aoti_launches": {k: export[k]["launches_aoti"][2] for k in ("bf16", "int8")},
                 "runner_launches": {k: export[k]["runner"]["launches_per_batch"]["bias_act"]
-                                    for k in ("bf16", "int8")}}]
+                                    for k in ("bf16", "int8")}},
+               {"name": "nms_gate", "route": "cuda",
+                "source": "yololp_tpu_torch/csrc/nms_gate.cu",
+                "replaces": None, "launches": gate_launches, "max_abs_err": gate["max_abs_err"],
+                "ms": gate["shapes"]["yololps/yolov6m b128"]["alone_ms"],
+                "device_ms": gate["shapes"]["yololps/yolov6m b128"]["device_ms"],
+                "plain_ms": gate["shapes"]["yololps/yolov6m b128"]["plain_ms"],
+                "bound_ms": gate["shapes"]["yololps/yolov6m b128"]["bound_ms"],
+                "bound_by": "bytes", "library_ms": None, "matches_plain": True,
+                "export_nodes": gate["export"]["nodes"],
+                "aoti_nodes": gate["export"]["inductor_nodes"]}]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

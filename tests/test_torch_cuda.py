@@ -20,16 +20,20 @@ conv9dots tap at the main path's N = 32, and `matmul_nt` on a strided tap
 view of (O, 3, 3, C) weights; int8 equal, bf16 within 2 K 2**-24
 (|a| @ |b|) elementwise. Then chip_smoke.py's phase 12 at a small size (the
 evaler on the card against the plain CPU NMS on its decode) and the loss on
-the card against the CPU.
+the card against the CPU. nms_gate: chip_smoke.py's phase 27 cases (ties,
+NaN rows, scores at the threshold and its fp32 neighbours, an odd row
+count, an offset view, 8400 and 34000 anchors), every output equal to the
+plain version's to the bit; select_candidates on the card launches it once
+and raises on a decode it does not take.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_matmul, int8_case, int8_specs, mask_cases, matmul_cases,
-                        matmul_operands)
-from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
+from chip_smoke import (check_matmul, gate_decode, gate_edge_decode, gate_equal, int8_case,
+                        int8_specs, mask_cases, matmul_cases, matmul_operands)
+from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms, cuda_nms_gate
 
 CASES = ["clustered_B32_K512", "conf_gated_zero_tail", "exact_score_ties",
          "degenerate_boxes", "chain_128_deep", "clustered_K1024", "B1_K512", "B128_K512", "K1",
@@ -149,8 +153,8 @@ def test_eval_on_the_card_equals_the_plain_nms_on_its_decode(cuda_device):
     inf = Inferer(None, fuse_model(train).state_dict(), cfg, img_size=128, device=cuda_device)
     loader = loader_batches(*labelled_frames(np.random.default_rng(0), 10, 128), 4)
     ev = Evaler({}, batch_size=4, img_size=128, conf_thres=0.01, device=cuda_device)
-    metric, launches, preds, own = eval_on_card(ev, ev.make_infer_fn(inf.model), inf.model,
-                                                loader, (cuda_nms,))
+    metric, launches, preds, own, _ = eval_on_card(ev, ev.make_infer_fn(inf.model), inf.model,
+                                                   loader, (cuda_nms,))
     assert launches == {"cuda_nms": 3} and len(preds) == 10 and len(metric) == 7
     assert len(own) == 7
 
@@ -194,6 +198,54 @@ def test_loss_on_the_card_equals_the_cpu(cuda_device):
     torch.testing.assert_close(card[1], cpu[1], rtol=1e-5, atol=1e-7)
     for g, w in zip(card[3:], cpu[3:]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("thres", [0.4, 0.7, 0.25])
+def test_nms_gate_kernel_equals_plain_on_the_edges(thres, compat, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(27)
+    gate_equal(gate_edge_decode(gen, cuda_device, thres), thres, compat, "edges")  # raises
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, a", [(3, 517), (4, 8400), (1, 34000)])
+def test_nms_gate_kernel_equals_plain(b, a, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(b * a)
+    pred = gate_decode(b, a, gen, cuda_device)
+    for compat in (False, True):
+        gate_equal(pred, 0.4, compat, f"{b} x {a}")
+    flat = pred.view(-1)[1:1 + (b * a - 1) * 290]  # 4 bytes past a 16-byte boundary
+    gate_equal(flat.view(1, b * a - 1, 290), 0.4, False, "offset view")
+
+
+@pytest.mark.cuda
+def test_select_candidates_on_the_card_launches_the_gate_kernel_once(cuda_device):
+    from yololp_tpu_torch.ops.nms import select_candidates
+
+    gen = torch.Generator(device=cuda_device).manual_seed(28)
+    pred = gate_decode(2, 8400, gen, cuda_device)
+    cuda_nms_gate.launches = 0
+    got = select_candidates(pred, 0.4, 512)
+    torch.cuda.synchronize()
+    assert cuda_nms_gate.launches == 1
+    want = select_candidates(pred.cpu(), 0.4, 512)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    strided = torch.stack([pred, pred], 2).view(2, 2 * 8400, 290)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        select_candidates(strided, 0.4, 512)
+    with pytest.raises(TypeError, match="float32"):
+        select_candidates(pred.double(), 0.4, 512)
+
+
+@pytest.mark.cuda
+def test_nms_gate_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    pred = torch.zeros(2, 8, 290, device=cuda_device)
+    for bad in (pred.double(), pred[..., :289], pred.transpose(0, 1)):
+        with pytest.raises((ValueError, TypeError)):
+            cuda_nms_gate.nms_gate(bad, 0.4)
+    empty = cuda_nms_gate.nms_gate(pred[:, :0], 0.4)
+    assert [t.shape for t in empty] == [(2, 0, 4), (2, 0), (2, 0, 24), (2, 0)]
 
 
 @pytest.mark.cuda

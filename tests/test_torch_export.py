@@ -6,7 +6,7 @@ checkpoint (seed 41, conf 0.5, iou 0.45, max_det 20; its thresholds sit clear
 of the tolerance there) on the same two letterboxed images. The end2end
 `.pt2`, saved and loaded, replays the live port's ops: det/valid/num equal
 `Inferer._run`'s bit for bit, and its graph holds exactly one
-`yololp_torch.greedy_nms_mask` node. Against the JAX `export_stablehlo`
+`yololp_torch.nms_gate` and one `yololp_torch.greedy_nms_mask` node. Against the JAX `export_stablehlo`
 artifact, deserialized and run as tests/test_export.py runs it: num and
 valid equal, detections within tests/test_torch_inferer.py's tolerance
 (class ids exact, the rest rtol 1e-4 / atol 1e-3: fp32 conv-order
@@ -101,7 +101,8 @@ def test_end2end_pt2_equals_the_live_port_and_the_jax_artifact(setup):
     d, ckpt, inf, batch = setup
     paths = export_pt2("yololpn", ckpt, str(d / "m_fp32"), batch=2, img_size=IMG, half=False,
                        device="cpu", **KW)
-    assert custom_op_nodes(paths["pt2"]) == EPILOGUES + ["yololp_torch.greedy_nms_mask.default"]
+    assert custom_op_nodes(paths["pt2"]) == EPILOGUES + ["yololp_torch.nms_gate.default",
+                                                         "yololp_torch.greedy_nms_mask.default"]
     got = run_pt2(paths["pt2"], batch)
     want = inf._run(batch)
     for name, a, b in zip(("det", "valid", "num"), got, want):

@@ -236,11 +236,14 @@ def test_nms_counters_read_the_gated_slots_exactly():
     with recording():
         _, valid, num = non_max_suppression(pred, conf_thres=0.5, pre_nms_topk=4, max_det=4)
     assert num.tolist() == [3, 0]
-    assert P.counters() == {"nms.gated": 3, "nms.slots": 8}
+    assert P.counters() == {"nms.gated": 3, "nms.slots": 8, "nms.gate_calls": 1,
+                            "nms.gate_fused": 1}
     assert S.reader("nms_slot_use.serve")({}) == 37.5
     with recording():
         non_max_suppression(decode_with_gate_counts([6, 5]), conf_thres=0.5, pre_nms_topk=4)
-    assert P.counters() == {"nms.gated": 3 + 8, "nms.slots": 16}  # min(gated, K) an image
+    # min(gated, K) an image
+    assert P.counters() == {"nms.gated": 3 + 8, "nms.slots": 16, "nms.gate_calls": 2,
+                            "nms.gate_fused": 2}
 
 
 def test_run_outputs_are_the_same_bits_recording_or_not(inferer, batch):

@@ -5,11 +5,11 @@
 // and csrc/bias_act.cu through the libraries ops/_build.py builds (their
 // extern "C" launchers), with the checks of ops/cuda_nms.py,
 // ops/cuda_conv.py and ops/cuda_bias_act.py, on the current stream of the
-// tensors' card, and raise on any refusal. matmul and matmul_nt are declared
-// only: no exported program calls them. A package that export.compile_aoti
-// writes calls no bias_act either (Inductor fuses the epilogues from their
-// plain arithmetic there); a package compiled from the .pt2 as it stands
-// does.
+// tensors' card, and raise on any refusal. matmul, matmul_nt and nms_gate
+// are declared only: no exported program calls the first two, and a package
+// that export.compile_aoti writes calls neither nms_gate nor bias_act
+// (Inductor fuses both from their plain arithmetic there). A package compiled
+// from the .pt2 as it stands calls both, and this runner has no nms_gate.
 //
 // An AOTInductor package calls a custom op through the dispatcher, so a C++
 // process that links this file runs the package's NMS and int8 convs in the
@@ -222,6 +222,9 @@ TORCH_LIBRARY(yololp_torch, m) {
   m.def("matmul(Tensor a, Tensor b) -> Tensor", {at::Tag::needs_exact_strides});
   m.def("matmul_nt(Tensor a, Tensor b_t) -> Tensor", {at::Tag::needs_exact_strides});
   m.def("bias_act(Tensor y, Tensor b, int act) -> Tensor", {at::Tag::needs_exact_strides});
+  m.def("nms_gate(Tensor pred, float conf_thres, bool compat_ad4_bug) -> "
+        "(Tensor box, Tensor score, Tensor rest, Tensor passed)",
+        {at::Tag::needs_exact_strides});
 }
 
 TORCH_LIBRARY_IMPL(yololp_torch, CUDA, m) {

@@ -6,18 +6,18 @@ artifact with the weights inlined as constants. The port writes, from one
 `torch.export` program at a static (batch, img, img, 3) uint8 input:
 
   * `<out>.pt2`: the program itself (`torch.export.save`), its weights and
-    int8 kernels among its constants, the greedy-NMS keep-mask, every int8
-    conv and every deploy conv's epilogue (`bias_act`) as `yololp_torch`
-    custom-op nodes (ops/library.py). Load it with
-    `torch.export.load(path).module()`;
+    int8 kernels among its constants, the NMS gate (`nms_gate`), the
+    greedy-NMS keep-mask, every int8 conv and every deploy conv's epilogue
+    (`bias_act`) as `yololp_torch` custom-op nodes (ops/library.py). Load it
+    with `torch.export.load(path).module()`;
   * `<out>.json`: what it takes and returns, with the keys of the JAX
     sidecar; `torch_version` and `device` stand where JAX writes its calling
     convention and platforms;
   * with `aoti=True`, `<out>.aoti.pt2`: an AOTInductor package compiled from
     the same program, which `torch._inductor.aoti_load_package` loads in
     Python and deploy/aoti_cpp/'s runner loads in a C++ process. Its
-    `bias_act` nodes are first decomposed into their plain arithmetic
-    (`inductor_program`), so that Inductor fuses each epilogue into the
+    `bias_act` and `nms_gate` nodes are first decomposed into their plain
+    arithmetic (`inductor_program`), so that Inductor fuses each into the
     passes around it.
 
 Two flavors, as in JAX: 'raw' (uint8 batch -> (B, A, 290) decode) and
@@ -48,7 +48,7 @@ import torch
 from torch import nn
 
 from yololp_tpu_torch.core.inferer import Inferer
-from yololp_tpu_torch.ops import cuda_bias_act
+from yololp_tpu_torch.ops import cuda_bias_act, cuda_nms_gate
 from yololp_tpu_torch.ops.division import unit_pixels
 from yololp_tpu_torch.ops.nms import non_max_suppression
 from yololp_tpu_torch.quant.int8_infer import build_int8_model, quantize_kernels_int8
@@ -133,14 +133,16 @@ def openmp_compiler() -> str:
 
 def inductor_program(program: torch.export.ExportedProgram) -> torch.export.ExportedProgram:
     """`program` with each deploy conv's epilogue op (`yololp_torch::bias_act`)
-    decomposed into its plain arithmetic (`cuda_bias_act.bias_act_plain`),
-    every other node kept. Inductor fuses an epilogue so written into the
-    passes around it (the concatenation, max-pool or decode it feeds),
-    which an opaque op prevents: kept as the op, the epilogue made a
-    yololps b128 package take 35.5 ms a batch against 24.9 ms with Inductor's
-    fusion (an H100 at 700 W)."""
+    and the NMS gate (`yololp_torch::nms_gate`) decomposed into their plain
+    arithmetic (`cuda_bias_act.bias_act_plain`, `cuda_nms_gate.nms_gate_plain`),
+    every other node kept. Inductor fuses an op so written into the passes
+    around it (the concatenation, max-pool or decode an epilogue feeds, the
+    decode the gate reads), which an opaque op prevents: kept as the op, the
+    epilogue made a yololps b128 package take 35.5 ms a batch against 24.9 ms
+    with Inductor's fusion (an H100 at 700 W)."""
     return program.run_decompositions(
-        {torch.ops.yololp_torch.bias_act.default: cuda_bias_act.bias_act_plain})
+        {torch.ops.yololp_torch.bias_act.default: cuda_bias_act.bias_act_plain,
+         torch.ops.yololp_torch.nms_gate.default: cuda_nms_gate.nms_gate_plain})
 
 
 def compile_aoti(program: torch.export.ExportedProgram, path: str) -> Tuple[str, float]:

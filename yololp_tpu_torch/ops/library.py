@@ -1,4 +1,4 @@
-"""The four kernels as custom ops of one namespace, `yololp_torch`.
+"""The kernels as custom ops of one namespace, `yololp_torch`.
 
 `torch.export` and AOTInductor cannot trace a ctypes call on `data_ptr()`,
 and the plain NMS loops on data, so each kernel is registered as an op that
@@ -9,6 +9,7 @@ the tracer sees as one opaque node:
     yololp_torch::matmul            ops/cuda_matmul.py csrc/mxu_matmul.cu
     yololp_torch::matmul_nt         ops/cuda_matmul.py csrc/mxu_matmul.cu
     yololp_torch::bias_act          ops/cuda_bias_act.py csrc/bias_act.cu
+    yololp_torch::nms_gate          ops/cuda_nms_gate.py csrc/nms_gate.cu
 
 Each op has three implementations, chosen by the dispatcher from the
 device of its tensors: CUDA is the kernel's launcher (`*_cuda`, which checks
@@ -16,8 +17,9 @@ its inputs and raises on any refusal), CPU is the kernel's plain version (the
 CPU's kernel, not a fallback), and a fake one gives the output's shape, dtype
 and strides without reading data. The wrappers the call sites use
 (`cuda_nms.greedy_nms_mask`, `cuda_conv.int8_conv`, `cuda_matmul.matmul`,
-`cuda_matmul.matmul_nt`, `cuda_bias_act.bias_act`) call the ops, so eager
-runs and exported programs reach each kernel through one entry point.
+`cuda_matmul.matmul_nt`, `cuda_bias_act.bias_act`, `cuda_nms_gate.nms_gate`)
+call the ops, so eager runs and exported programs reach each kernel through
+one entry point.
 
 `int8_conv` takes its output dtype as the kernel's mode number (`out_mode`:
 0 int8, 1 float32, 2 bfloat16, 3 int32; `cuda_conv.out_mode`), not as a
@@ -39,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from yololp_tpu_torch.ops import cuda_bias_act, cuda_conv, cuda_matmul, cuda_nms
+from yololp_tpu_torch.ops import cuda_bias_act, cuda_conv, cuda_matmul, cuda_nms, cuda_nms_gate
 
 NAMESPACE = "yololp_torch"
 SCHEMAS = {
@@ -49,6 +51,8 @@ SCHEMAS = {
     "matmul": "matmul(Tensor a, Tensor b) -> Tensor",
     "matmul_nt": "matmul_nt(Tensor a, Tensor b_t) -> Tensor",
     "bias_act": "bias_act(Tensor y, Tensor b, int act) -> Tensor",
+    "nms_gate": ("nms_gate(Tensor pred, float conf_thres, bool compat_ad4_bug) -> "
+                 "(Tensor box, Tensor score, Tensor rest, Tensor passed)"),
 }
 
 
@@ -112,12 +116,23 @@ def _bias_act_fake(y, b, act):
     return torch.empty_like(y)
 
 
+def _nms_gate_cpu(pred, conf_thres, compat_ad4_bug):
+    cuda_nms_gate._check(pred)
+    return cuda_nms_gate.nms_gate_plain(pred, conf_thres, compat_ad4_bug)
+
+
+def _nms_gate_fake(pred, conf_thres, compat_ad4_bug):
+    cuda_nms_gate._check(pred)
+    return cuda_nms_gate.empty_outputs(pred)
+
+
 _IMPLS = {
     "greedy_nms_mask": (_nms_cpu, cuda_nms.greedy_nms_mask_cuda, _nms_fake),
     "int8_conv": (_conv_cpu, _conv_cuda, _conv_fake),
     "matmul": (_mm_cpu, cuda_matmul.matmul_cuda, _mm_fake),
     "matmul_nt": (_mm_nt_cpu, cuda_matmul.matmul_nt_cuda, _mm_nt_fake),
     "bias_act": (_bias_act_cpu, cuda_bias_act.bias_act_cuda, _bias_act_fake),
+    "nms_gate": (_nms_gate_cpu, cuda_nms_gate.nms_gate_cuda, _nms_gate_fake),
 }
 
 # the registrations live as long as this module (one per process: a second

@@ -7,13 +7,16 @@ Column layout in: [0:4] bbox xywh (pixels), [4] obj (==1), [5:13] corners,
 Output layout (28 cols): [0:4] xyxy, [4:12] corners, [12:20] per-task
 confidences (pro, alp, ad0..ad5), [20:28] per-task argmax class ids (float).
 
-Steps: mean-of-8 confidence gate, top-k of `pre_nms_topk` by a stable
-descending sort (ties go to the lower index, as lax.top_k), the greedy
-keep-mask (a CUDA kernel on the card, ops/cuda_nms.py) and stable compaction,
-each a span of its own (`nms.gate`, `nms.topk`, `nms.keep`, `nms.compact`
-inside `nms`; utils/profiler.py). The counters `nms.gated` and `nms.slots`
-add, per image, the keep step's slots that hold an anchor at or above the
-gate (min(gated anchors, K)) and all its K slots.
+Steps: mean-of-8 confidence gate (boxes, the 8 task maxima and argmaxima,
+the score and the gate in one pass: the op `yololp_torch::nms_gate`,
+ops/cuda_nms_gate.py, a CUDA kernel on the card), top-k of `pre_nms_topk` by
+a stable descending sort (ties go to the lower index, as lax.top_k), the
+greedy keep-mask (a CUDA kernel on the card, ops/cuda_nms.py) and stable
+compaction, each a span of its own (`nms.gate`, `nms.topk`, `nms.keep`,
+`nms.compact` inside `nms`; utils/profiler.py). The counters `nms.gated` and
+`nms.slots` add, per image, the keep step's slots that hold an anchor at or
+above the gate (min(gated anchors, K)) and all its K slots; `nms.gate_calls`
+counts the gates and `nms.gate_fused` those that took the op.
 
 The JAX function's two variants are here too. `candidate_selector="approx"`
 names lax.approx_max_k, which on a TPU is a PartialReduce with recall target
@@ -31,33 +34,24 @@ from typing import Tuple
 
 import torch
 
+from yololp_tpu_torch.ops import cuda_nms_gate
 from yololp_tpu_torch.ops.cuda_nms import greedy_nms_mask
-from yololp_tpu_torch.ops.geometry import xywh2xyxy
 from yololp_tpu_torch.utils.profiler import annotate, count, recording
 
-NPRO, NALP, NADS = 31, 24, 37
 SELECTORS = ("topk", "approx")
 
 
-def _split_scores(cls):
-    """(..., 276) -> list of 8 per-task score tensors."""
-    out = [cls[..., :NPRO], cls[..., NPRO:NPRO + NALP]]
-    base = NPRO + NALP
-    for i in range(6):
-        out.append(cls[..., base + i * NADS: base + (i + 1) * NADS])
-    return out
-
-
-def _sum_in_order(confs: torch.Tensor, cols) -> torch.Tensor:
-    """Left-to-right sum of the given columns of (..., 8) confs: the order in
-    which XLA's CPU reduction sums them. A device reduction may sum in another
-    order, and a last-bit difference in a score can move the gate or swap two
-    near-tied candidates, so the sum is spelled out."""
-    cols = list(cols)
-    total = confs[..., cols[0]]
-    for c in cols[1:]:
-        total = total + confs[..., c]
-    return total
+def _gate_takes_op(prediction: torch.Tensor) -> bool:
+    """Whether the gate runs as the op `yololp_torch::nms_gate`: always on
+    the card (the kernel, which raises on a decode it does not take), and on
+    the CPU for a contiguous fp32 (B, A, 290) decode (its plain version).
+    Other CPU input (float64, a strided view) runs the plain version
+    directly."""
+    if prediction.device.type == "cuda":
+        return True
+    return (prediction.device.type == "cpu" and prediction.dtype == torch.float32
+            and prediction.dim() == 3 and prediction.shape[-1] == cuda_nms_gate.COLS
+            and prediction.is_contiguous())
 
 
 def stable_compact_order(keep: torch.Tensor, max_det: int) -> torch.Tensor:
@@ -93,33 +87,22 @@ def select_candidates(prediction: torch.Tensor, conf_thres: float, pre_nms_topk:
     the 8 task class ids (as float) of each candidate.
     """
     dev = prediction.device
+    fused = _gate_takes_op(prediction)
     with annotate("nms.gate", dev):
-        box = xywh2xyxy(prediction[..., :4])
-        obj = prediction[..., 4:5]
-        cls = prediction[..., 13:] * obj  # conf = obj_conf * cls_conf
-
-        task_scores = _split_scores(cls)
-        confs = torch.stack([t.amax(dim=-1) for t in task_scores], -1)    # (B, A, 8)
-        preds = torch.stack([t.argmax(dim=-1) for t in task_scores], -1)  # first max
-
-        score = _sum_in_order(confs, range(8)) / 8.0  # NMS ranking score
-        if compat_ad4_bug:
-            # the reference sums ad4 twice and omits ad5
-            mask_conf = _sum_in_order(confs, (0, 1, 2, 3, 4, 5, 6, 6)) / 8.0
-        else:
-            mask_conf = score
-        passed = mask_conf >= conf_thres
-        gated_score = torch.where(passed, score, torch.zeros_like(score))
+        gate = cuda_nms_gate.nms_gate if fused else cuda_nms_gate.nms_gate_plain
+        box, gated_score, rest, passed = gate(prediction, conf_thres, compat_ad4_bug)
 
     k = min(pre_nms_topk, prediction.shape[1])
     if recording():
         # the slots of the keep step that hold a gated anchor, and all its slots
         count("nms.gated", passed.sum(1).clamp_(max=k).sum())
         count("nms.slots", prediction.shape[0] * k)
+        count("nms.gate_calls", 1)
+        if fused:
+            count("nms.gate_fused", 1)
     with annotate("nms.topk", dev):
         top_score, top_idx = torch.sort(gated_score, dim=1, descending=True, stable=True)
         top_score, top_idx = top_score[:, :k].contiguous(), top_idx[:, :k]
-        rest = torch.cat([prediction[..., 5:13], confs, preds.float()], -1)
         return _take(box, top_idx), top_score, _take(rest, top_idx)
 
 

@@ -81,8 +81,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     from yololp_tpu_torch.ops.cuda_nms import greedy_nms_mask
-    from yololp_tpu_torch.ops.nms import (SELECTORS, _split_scores, _sum_in_order,
-                                          non_max_suppression, select_candidates)
+    from yololp_tpu_torch.ops.cuda_nms_gate import nms_gate
+    from yololp_tpu_torch.ops.nms import SELECTORS, non_max_suppression, select_candidates
 
     b, a, steps = args.batch_size, args.anchors, args.iters
     k = min(args.pre_nms_topk, a)
@@ -109,10 +109,7 @@ def main(argv=None):
     def candidates(p_):
         # both selectors: JAX's approx_max_k (taken when K < A) is an exact
         # sort off the TPU, as ops/nms.py:select_candidates says
-        cls = p_[..., 13:] * p_[..., 4:5]
-        confs = torch.stack([t.amax(dim=-1) for t in _split_scores(cls)], -1)
-        score = _sum_in_order(confs, range(8)) / 8.0
-        gated = torch.where(score >= args.conf_thres, score, torch.zeros_like(score))
+        gated = nms_gate(p_, args.conf_thres)[1]
         top, idx = torch.sort(gated, dim=1, descending=True, stable=True)
         return top[:, :k], idx[:, :k]
 
