@@ -4,15 +4,19 @@
     python3 chip_smoke.py [--out results.json]
 
 Run from the repository root on a machine with one NVIDIA card and the CUDA
-toolkit. Phases, each of which raises on failure:
+toolkit. The card check of every kernel against its plain version is not
+here but in the card test, over the cases of tests/kernel_cases.py:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+This script drives the paths that run the kernels, times them, and takes
+its kernels' operands from tests/kernel_cases.py. Its phases keep their
+numbers; 3, 6 and 9 (the greedy-NMS, int8 conv and matmul kernels against
+their plain versions) moved into the card test, as did the kernel-against-
+plain halves of 26 and 27. Phases, each of which raises on failure:
 
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build every kernel of csrc/ with nvcc (one process per source, in parallel);
-  3. the greedy-NMS kernel against its plain PyTorch version, exact keep-mask
-     equality, on clustered boxes, a conf-gated zero tail, exact score ties,
-     degenerate boxes, a 128-deep suppression chain, K = 1024, B = 1 and
-     B = 128, K = 1, 300 and 1000, every score 0, and a 512-deep chain that
-     crosses every band of rows (and every block of the kernel's cluster);
   4. the main path: yololps at full width, every parameter drawn from a seeded
      generator, fused to the deploy graph, `Inferer.detect_batch` on 32 BGR
      frames at 640x640 and 360x640 (pad only, no cv2), with the launch counts
@@ -27,13 +31,6 @@ toolkit. Phases, each of which raises on failure:
      profiler, beside its plain version, its bound and the kept count; then
      the NMS stage of one bf16 batch by kernel (gate reductions, sort,
      gathers, the kernel, compaction);
-  6. the int8 conv kernel against its plain PyTorch version, exact equality:
-     every RepBlock chain geometry of yololps at 640 with N = 32 (int8 out
-     with relu, then bf16 and fp32 exits), a 3x3/s2, 1x1 with O = 277 and 12,
-     an int8 out without relu, entry codes at -128 and 127, the accumulator
-     mode, C = 32 (K = 288, not a multiple of the 128-byte stage) with M not
-     a multiple of the 128-row tile, a 3x3/s2 fp32 exit without relu at
-     O = 12, and a C that takes the byte-gather path;
   7. the int8 main path: calibrate (max) on two batches of the seeded frames
      on the card, write and reload the amax json, install
      `make_int8_infer_fn(conv_impl="pallas")` as the inferer's `_run` (as the
@@ -55,11 +52,6 @@ toolkit. Phases, each of which raises on failure:
      timed alone (kernel, plain version, bound, and a cuDNN bf16 conv of the
      same shape as a reference point), with each launch's tile, stage count
      and shared memory and the kernel's ptxas registers;
-  9. the matmul kernel against its plain PyTorch version, int8 and bf16: the
-     matmul probe's three shapes, ragged M, K and N, K = 288, a conv9dots tap
-     of an 80x80, C = 128 map at N = 32, and `matmul_nt` on the strided
-     (O, C) view of one tap of (O, 3, 3, C) weights; int8 equal, bf16 within
-     2 K 2**-24 (|a| @ |b|) elementwise;
   10. the dots int8 main path: with phase 7's calibration,
      `make_int8_infer_fn(conv_impl="dots")` and then "conv" as the inferer's
      `_run`, `detect_batch` on the 32 frames, the launch counts of both
@@ -170,11 +162,11 @@ toolkit. Phases, each of which raises on failure:
      and to eager's bit for bit. Compiled into an AOTInductor package
      (compile seconds printed) and run through aoti_load_package: the same
      launch counts, read from inside the package; det/valid/num equal to
-     the plain CPU NMS on the package's own decode; the bf16 decode within
-     EXPORT_* of eager's; the int8 decode's boxes and corners equal to the
-     eager conv plan's bit for bit and its scores within EXPORT_SCORE_ATOL,
-     valid and num equal; the kernels by name in a profiler table of one
-     batch. The C++ runner (built beside phases 3-20) runs --bench 20 on
+     the plain CPU NMS on the package's own decode; the decode's boxes and
+     corners equal to eager's (bf16) or the eager conv plan's (int8) bit for
+     bit and its scores within EXPORT_SCORE_ATOL, valid and num equal; the
+     kernels by name in a profiler table of one
+     batch. The C++ runner (built beside phases 4-20) runs --bench 20 on
      both packages: its first LCG batch's num equals the Python package's
      on that batch, rebuilt in numpy, and it reports one greedy_nms, 68
      int8_conv and no bias_act launch a batch. img/s of eager, the .pt2, the package and
@@ -217,7 +209,7 @@ toolkit. Phases, each of which raises on failure:
      a batch, one a mesh entry sharded); nms_iters 1, 2 and 16 (a fixed
      number of update steps in plain PyTorch ops, no kernel launch) on
      phase 4's decode, keep-mask and detections equal to the same call on
-     the CPU; on phase 3's 512-deep band chain nms_iters=16 equal to the
+     the CPU; on a 512-deep band chain nms_iters=16 equal to the
      CPU and unequal to the exact mask; then bench_nms's grid (nms_iters
      0 and 16, and the candidate step alone; off the TPU "approx" runs the
      same program as "topk", which the tool times once for both keys) at
@@ -239,30 +231,25 @@ toolkit. Phases, each of which raises on failure:
      program on phase 4's weights at phase 4's gate (2K anchors of every
      image pass, so greedy_nms walks a full K = 256 in one launch) equals the
      plain CPU NMS on its decode. The bench's line of the numbers is printed;
-  26. the deploy convs' epilogue kernel (csrc/bias_act.cu) against its plain
-     version and PyTorch's unfused add_ + activation: none and ReLU bit for
-     bit, SiLU bit for bit or within EPILOGUE_SILU_ULPS (1 bf16 ulp, 2
-     fp32), at every distinct conv-output shape of the yololps and yolov6m
-     deploy forwards at b128, and on fp32, NCHW, a ragged count and an
-     unaligned view; each model's
-     b128 forward with the kernel against the same forward on the parent's
-     sequence (a no-op hook on each biased conv keeps it on cuDNN's bias
-     add), decode bit for bit, and 71 / 108 launches a forward; per model
-     the kernel's time alone summed over a forward beside the bound (twice
-     the conv outputs' bytes over 3.35 TB/s), the plain version's and the
-     unfused sequence's, its device time in a profiled forward, and both
-     forwards' times and profiles;
-  27. the NMS gate kernel (csrc/nms_gate.cu) against its plain version on
-     the card, every output bit for bit (box, score, rest, passed): the
-     served yololps b128 decode (8400 anchors) and synthetic decodes of the
-     cells' shapes (128 x 8400, 32 x 34000), exact ties inside a task, NaN
-     rows, scores at fp32(conf_thres) and its two neighbours (thresholds
-     0.4, 0.7, 0.25), compat_ad4_bug on and off, an odd row count and an
-     offset (not 16-byte aligned) view; `non_max_suppression` with the op
-     against the plain gate; an exported program holds one `nms_gate` node
-     and launches it once, its AOTInductor program none; the kernel's time
-     alone (CUDA events, 100 launches) and in a device trace beside its
-     bytes' bound, the plain version's, and the NMS stage with each.
+  26. the deploy convs' epilogue kernel (csrc/bias_act.cu) at every
+     distinct conv-output shape of the yololps and yolov6m deploy forwards
+     at b128: each model's b128 forward with the kernel against the same
+     forward on the parent's sequence (a no-op hook on each biased conv
+     keeps it on cuDNN's bias add), decode bit for bit unless the kernel's
+     SiLU rounds apart from PyTorch's on one of those shapes, and 71 / 108
+     launches a forward; per model the kernel's time alone summed over a
+     forward beside the bound (twice the conv outputs' bytes over 3.35
+     TB/s), the plain version's and the unfused sequence's, its device time
+     in a profiled forward, and both forwards' times and profiles;
+  27. the NMS gate kernel (csrc/nms_gate.cu) on the served yololps b128
+     decode (8400 anchors): every output bit for bit against the plain
+     version at thresholds 0.4 and the median score, compat_ad4_bug on and
+     off; `non_max_suppression` with the op against the plain gate; an
+     exported program holds one `nms_gate` node and launches it once, its
+     AOTInductor program none; at the cells' shapes (128 x 8400, 32 x
+     34000) the kernel's time alone (CUDA events, 100 launches) and in a
+     device trace beside its bytes' bound, the plain version's, and the NMS
+     stage with each.
 
 It prints the kernels line and, last, {"ok": true, "device": {...}}. Without a
 card it exits non-zero before printing any result.
@@ -281,6 +268,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from kernel_cases import (CHAINS, EPILOGUE_BATCH, MM_PROBE, chain_boxes,  # noqa: E402
+                          epilogue_operand, eval_on_card, gate_decode, gate_equal,
+                          labelled_frames, loader_batches, matmul_operands, own_gts,
+                          randomize_parameters, unfused_epilogue)
 
 BATCH = 32
 IMG = 640
@@ -347,91 +340,6 @@ def cuda_ms(fn, reps: int, windows: int = 5) -> list:
     return times
 
 
-def clustered_boxes(rng, n, n_clusters=8, scale=640.0):
-    """Overlapping clusters of xyxy boxes (the generator of tests/test_nms.py)."""
-    centers = rng.uniform(50, scale - 50, size=(n_clusters, 2))
-    idx = rng.integers(0, n_clusters, size=n)
-    cxy = centers[idx] + rng.normal(0, 12, size=(n, 2))
-    wh = rng.uniform(20, 80, size=(n, 2))
-    return np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
-
-
-def chain_boxes(n):
-    """Box i overlaps only box i + 1 (IoU 1/4): greedy keeps every other box
-    at iou_thres 0.2."""
-    xs = np.arange(n, dtype=np.float32) * 6.0
-    return np.stack([xs, np.zeros(n, np.float32), xs + 10.0, np.full(n, 10.0, np.float32)], -1)
-
-
-def mask_cases(rng):
-    """name -> (boxes (B, K, 4), score-sorted scores (B, K), iou_thres)."""
-    def scores(b, k, g=rng):
-        return np.sort(g.uniform(0.01, 1.0, (b, k)).astype(np.float32), -1)[:, ::-1].copy()
-
-    boxes = np.stack([clustered_boxes(rng, 512) for _ in range(BATCH)])
-    gated = scores(BATCH, 512)
-    gated[:, 300:] = 0.0
-    tied = scores(BATCH, 512)
-    tied[:, 50:250] = tied[:, 50:51]
-    flipped = boxes.copy()
-    flipped[:, ::3] = flipped[:, ::3][..., [2, 3, 0, 1]]
-    cases = {
-        "clustered_B32_K512": (boxes, scores(BATCH, 512), 0.45),
-        "conf_gated_zero_tail": (boxes, gated, 0.45),
-        "exact_score_ties": (boxes, tied, 0.45),
-        "degenerate_boxes": (flipped, scores(BATCH, 512), 0.45),
-        "chain_128_deep": (np.stack([chain_boxes(128)] * 4),
-                           np.tile(np.linspace(1, 0.5, 128, dtype=np.float32), (4, 1)), 0.2),
-        "clustered_K1024": (np.stack([clustered_boxes(rng, 1024) for _ in range(8)]), scores(8, 1024), 0.45),
-    }
-    # the cases added with the cluster design draw from a generator of their
-    # own, so `rng` and every later phase see the draws they saw before
-    more = np.random.default_rng(SEED + 1)
-    k300 = scores(4, 300, more)
-    k300[:, 200:] = 0.0
-    k1 = scores(BATCH, 1, more)
-    k1[::2] = 0.0
-    cases.update({
-        "B1_K512": (boxes[:1].copy(), scores(1, 512, more), 0.45),
-        "B128_K512": (np.stack([clustered_boxes(more, 512) for _ in range(128)]),
-                      scores(128, 512, more), 0.45),
-        "K1": (boxes[:, :1].copy(), k1, 0.45),
-        "K300_zero_tail": (np.stack([clustered_boxes(more, 300) for _ in range(4)]), k300, 0.45),
-        "K1000": (np.stack([clustered_boxes(more, 1000) for _ in range(8)]), scores(8, 1000, more), 0.45),
-        "all_scores_zero": (boxes, np.zeros((BATCH, 512), np.float32), 0.45),
-        "chain_512_every_band": (np.stack([chain_boxes(512)] * 4),
-                                 np.tile(np.linspace(1, 0.5, 512, dtype=np.float32), (4, 1)), 0.2),
-    })
-    return cases
-
-
-@torch.no_grad()
-def randomize_parameters(model: torch.nn.Module, gen: torch.Generator, gain: float = 0.7):
-    """Every kernel He-style (std gain/sqrt(fan_in)), BN scale and variance in
-    [0.5, 1.5], BN shift and mean ~N(0, 0.1), conv biases init + N(0, 0.1),
-    and every other parameter (a ScaleLayer's scale, a BottleRep's alpha)
-    init + N(0, 0.1): so the head scores vary and activations stay finite
-    through the deep graph."""
-    def normal(t, std):
-        return torch.randn(t.shape, generator=gen) * std
-
-    for m in model.modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
-            w = m.weight
-            fan_in = w[0].numel() if isinstance(m, torch.nn.Conv2d) else w.shape[0] * w[0, 0].numel()
-            w.copy_(normal(w, gain / fan_in ** 0.5))
-            if m.bias is not None:
-                m.bias.add_(normal(m.bias, 0.1))
-        elif isinstance(m, torch.nn.BatchNorm2d):
-            m.weight.copy_(0.5 + torch.rand(m.weight.shape, generator=gen))
-            m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=gen))
-            m.bias.copy_(normal(m.bias, 0.1))
-            m.running_mean.copy_(normal(m.running_mean, 0.1))
-        else:
-            for p in m.parameters(recurse=False):
-                p.add_(normal(p, 0.1))
-
-
 def frames(rng):
     """BGR frames: 640x640, and 360x640 which the letterbox only pads (no cv2)."""
     return [rng.integers(0, 256, (IMG if i % 4 else IMG * 9 // 16, IMG, 3), np.uint8)
@@ -467,24 +375,6 @@ def profile_batch(fn, card: str, label: str = "bf16", calls: int = 2, top_n: int
     for name, ms in top:
         print(f"  {ms:8.3f} ms {100 * ms / window_ms:5.1f}%  {name[:110]}")
     return dict(window_ms=window_ms, busy_ms=busy_ms, top=top, by_name=kernels)
-
-
-def phase_kernels(cuda_nms, rng, dev):
-    worst = 0
-    for name, (boxes, scores, thr) in mask_cases(rng).items():
-        b, s = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
-        got = cuda_nms.greedy_nms_mask(b, s, thr)
-        torch.cuda.synchronize()
-        plain_card = cuda_nms.greedy_nms_mask_plain(b, s, thr)
-        plain_cpu = cuda_nms.greedy_nms_mask_plain(b.cpu(), s.cpu(), thr)
-        err = int((got.cpu().int() - plain_cpu.int()).abs().max())
-        if not (torch.equal(got, plain_card) and err == 0):
-            raise AssertionError(f"greedy_nms kernel != plain on {name}: "
-                                 f"{int((got.cpu() != plain_cpu).sum())} slots differ")
-        worst = max(worst, err)
-        print(f"kernel vs plain [{name}] B={b.shape[0]} K={b.shape[1]}: equal, "
-              f"kept {int(got.sum())}/{got.numel()}")
-    return worst
 
 
 def nms_bound(b, k):
@@ -555,46 +445,6 @@ def phase_nms_times(results, card, cuda_nms, box_k, score_k, thr, pred, nms_kw):
     return results["nms"]
 
 
-# yololps at 640: (RepBlock, S, C = O, links) of every deploy chain
-CHAINS = [("backbone/ERBlock_2_rep", 160, 64, 2), ("backbone/ERBlock_3_rep", 80, 128, 4),
-          ("backbone/ERBlock_4_rep", 40, 256, 6), ("backbone/ERBlock_5_rep", 20, 512, 2),
-          ("neck/Rep_p4", 40, 128, 4), ("neck/Rep_p3", 80, 64, 4),
-          ("neck/Rep_n3", 40, 128, 4), ("neck/Rep_n4", 20, 256, 4)]
-
-
-def int8_specs():
-    """name -> (N, H, C, O, K, stride, relu, out_dtype, extreme codes)."""
-    specs = {}
-    for s, c in sorted({(s, c) for _, s, c, _ in CHAINS}, reverse=True):
-        for dt in (torch.int8, torch.bfloat16, torch.float32):
-            specs[f"chain_S{s}_C{c}_{str(dt)[6:]}"] = (BATCH, s, c, c, 3, 1, True, dt, False)
-    specs["3x3_s2_160to80_C64_O128"] = (BATCH, 160, 64, 128, 3, 2, True, torch.int8, False)
-    specs["1x1_O277_bf16"] = (BATCH, 80, 64, 277, 1, 1, False, torch.bfloat16, False)
-    specs["1x1_O12_bf16"] = (BATCH, 80, 64, 12, 1, 1, False, torch.bfloat16, False)
-    specs["int8_no_relu"] = (BATCH, 40, 128, 128, 3, 1, False, torch.int8, False)
-    specs["extreme_codes"] = (4, 40, 128, 128, 3, 1, True, torch.int8, True)
-    specs["accumulator_int32"] = (4, 40, 128, 64, 3, 1, False, torch.int32, True)
-    specs["C32_K288_M4107_O48"] = (3, 37, 32, 48, 3, 1, True, torch.int8, True)
-    specs["3x3_s2_C32_O12_fp32_no_relu"] = (2, 37, 32, 12, 3, 2, False, torch.float32, False)
-    specs["C24_byte_gather"] = (4, 33, 24, 40, 3, 2, True, torch.int8, False)
-    return specs
-
-
-def int8_case(rng, spec):
-    """(x (N, H, W, C) int8, w (O, K, K, C) int8, a, b, stride, relu,
-    out_dtype) on the host, for one spec of int8_specs()."""
-    n, h, c, o, k, stride, relu, dt, extremes = spec
-    x = rng.integers(-128, 128, (n, h, h, c)).astype(np.int8)
-    if extremes:
-        x.reshape(-1)[::7] = -128
-        x.reshape(-1)[3::7] = 127
-    w = rng.integers(-128, 128, (o, k, k, c)).astype(np.int8)
-    # scales as a calibrated link has them: codes land across [-128, 127]
-    a = (rng.uniform(0.5, 2.0, o) * 127.0 / (3.0 * 128 * 128 * np.sqrt(k * k * c))).astype(np.float32)
-    b = rng.normal(0, 8, o).astype(np.float32)
-    return x, w, a, b, stride, relu, dt
-
-
 def check_int8(cuda_conv, x, w, a, b, stride, relu, dt, what):
     """Kernel against plain on card tensors: equal to the bit; |diff| max."""
     got = cuda_conv.int8_conv_cuda(x, w, a, b, stride, relu, dt)
@@ -608,89 +458,6 @@ def check_int8(cuda_conv, x, w, a, b, stride, relu, dt, what):
         raise AssertionError(f"int8_conv kernel != plain [{what}]: max |diff| {err}, "
                              f"{int((got != want).sum())} of {got.numel()} differ")
     return got, err
-
-
-def phase_int8_kernels(cuda_conv, rng, dev):
-    worst = 0.0
-    for name, spec in int8_specs().items():
-        x, w, a, b, stride, relu, dt = int8_case(rng, spec)
-        args = [torch.from_numpy(t).to(dev) for t in (x, w, a, b)]
-        got, err = check_int8(cuda_conv, *args, stride, relu, dt, name)
-        worst = max(worst, err)
-        span = f"{int(got.min())}..{int(got.max())}" if not got.is_floating_point() \
-            else f"{float(got.min()):.3g}..{float(got.max()):.3g}"
-        print(f"int8_conv kernel vs plain [{name}] x {tuple(x.shape)} w {tuple(w.shape)} "
-              f"s{stride} -> {str(dt)[6:]}: equal, range {span}")
-    return worst
-
-
-# the matmul probe's shapes (M, K, N) (tools/probe_mxu_int8.py)
-MM_PROBE = [(16384, 512, 512), (8192, 1024, 1024), (4096, 2048, 2048)]
-
-
-def matmul_cases():
-    """name -> (M, K, N, layout): the probe's shapes, ragged ones (K not a
-    multiple of 16 bytes, N odd or above 64 by a little, M not a multiple of
-    the 128-row tile), K = 288 (a C = 32 conv's), one conv9dots tap of an
-    80x80, C = O = 128 map at N = 32 (layout "kn": `matmul(a, b)` with b
-    (K, N)), and the same tap as the dots plan passes it (layout "tap":
-    `matmul_nt(a, w[:, 1, 2, :])` of (N, 3, 3, K) weights, rows 9K apart)."""
-    cases = {f"probe_{m}x{k}x{n}": (m, k, n, "kn") for m, k, n in MM_PROBE}
-    cases.update({"ragged_1000x24x12": (1000, 24, 12, "kn"),
-                  "ragged_4097x2048x277": (4097, 2048, 277, "kn"),
-                  "ragged_333x37x65": (333, 37, 65, "kn"),
-                  "K288_4097x288x64": (4097, 288, 64, "kn"),
-                  f"conv9dots_tap_N{BATCH}_80x80_C128": (BATCH * 80 * 80, 128, 128, "kn"),
-                  f"strided_tap_view_N{BATCH}_80x80_C128": (BATCH * 80 * 80, 128, 128, "tap"),
-                  "strided_tap_view_O12_C64": (5000, 64, 12, "tap")})
-    return cases
-
-
-# layout -> the shape of the tensor b is (a view of): "kn" b (K, N) for
-# `matmul`; "nt" b_t (N, K) and "tap" one tap's (N, K) view of (N, 3, 3, K)
-# weights, for `matmul_nt`
-_B_SHAPES = {"kn": lambda k, n: (k, n), "nt": lambda k, n: (n, k), "tap": lambda k, n: (n, 3, 3, k)}
-
-
-def matmul_operands(rng, m, k, n, dtype, layout="kn", dev="cpu"):
-    """(a (M, K), b) on `dev`: b (K, N), (N, K) for layout "nt", or for
-    layout "tap" the strided (N, K) view of one tap of (N, 3, 3, K) weights
-    (sliced on `dev`: a copy of a strided view would be contiguous). int8
-    codes over [-128, 127], or bf16 values ~N(0, 1)."""
-    if dtype == torch.int8:
-        a = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8))
-        b = torch.from_numpy(rng.integers(-128, 128, _B_SHAPES[layout](k, n)).astype(np.int8))
-    else:
-        a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).bfloat16()
-        b = torch.from_numpy(rng.standard_normal(_B_SHAPES[layout](k, n), dtype=np.float32)).bfloat16()
-    a, b = a.to(dev), b.to(dev)
-    return a, (b[:, 1, 2, :] if layout == "tap" else b)
-
-
-def check_matmul(cuda_matmul, a, b, what, nt=False):
-    """Kernel against plain on card tensors: int8 equal, bf16 within
-    2 K 2**-24 (|a| @ |b|) elementwise (both sum exact fp32 products in fp32,
-    in other orders). `b` is (K, N) for `matmul`, or with `nt` a (N, K)
-    view for `matmul_nt`. Returns max |kernel - plain|."""
-    got = cuda_matmul.matmul_nt_cuda(a, b) if nt else cuda_matmul.matmul_cuda(a, b)
-    torch.cuda.synchronize()
-    b = b.t() if nt else b
-    want = cuda_matmul.matmul_plain(a, b)
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"mxu_matmul [{what}]: {tuple(got.shape)} {got.dtype} vs "
-                             f"{tuple(want.shape)} {want.dtype}")
-    diff = (got.double() - want.double()).abs()
-    err = float(diff.max())
-    if a.dtype == torch.int8:
-        if not torch.equal(got, want):
-            raise AssertionError(f"mxu_matmul kernel != plain [{what}]: max |diff| {err}, "
-                                 f"{int((got != want).sum())} of {got.numel()} differ")
-        return err
-    bound = 2 * a.shape[1] * 2.0 ** -24 * (a.double().abs() @ b.double().abs())
-    if not bool((diff <= bound).all()):
-        raise AssertionError(f"mxu_matmul bf16 [{what}]: {int((diff > bound).sum())} of "
-                             f"{diff.numel()} beyond 2K 2^-24 (|a|@|b|), max |diff| {err}")
-    return err
 
 
 def kernel_report(name, plans):
@@ -799,7 +566,7 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
     import tempfile
 
     from yololp_tpu_torch.core.inferer import Inferer
-    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops import cuda_conv
     from yololp_tpu_torch.ops.nms import non_max_suppression, select_candidates
     from yololp_tpu_torch.quant import int8_infer
     from yololp_tpu_torch.quant.quantize import calibrate, load_amax, save_amax
@@ -828,10 +595,8 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
     inferer8.warmup()
     log = LaunchLog(run8.int8_model, int8_infer)
 
-    cuda_conv.launches = cuda_nms.launches = 0
-    dets = inferer8.detect_batch(imgs)
-    torch.cuda.synchronize()
-    launches, nms_launches = cuda_conv.launches, cuda_nms.launches
+    dets, (launches, nms_launches) = counted(lambda: inferer8.detect_batch(imgs), "int8_conv",
+                                             "greedy_nms")
     log.remove()
     if launches < 30 or nms_launches < 1:
         raise AssertionError(f"int8 main path launched int8_conv {launches}x, greedy_nms {nms_launches}x")
@@ -926,21 +691,6 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
     return launches, err, tot, dict(inferer8=inferer8, amax=amax, conf=conf)
 
 
-def phase_matmul_kernels(cuda_matmul, rng, dev):
-    """9. Every matmul case in int8 and bf16; worst |kernel - plain| by type."""
-    worst = {torch.int8: 0.0, torch.bfloat16: 0.0}
-    for name, (m, k, n, layout) in matmul_cases().items():
-        for dt in (torch.int8, torch.bfloat16):
-            a, b = matmul_operands(rng, m, k, n, dt, layout, dev)
-            err = check_matmul(cuda_matmul, a, b, f"{name} {dt}", nt=layout != "kn")
-            worst[dt] = max(worst[dt], err)
-            held = "equal" if dt == torch.int8 else f"within 2K 2^-24 (|a|@|b|), max |diff| {err:.3g}"
-            what = (f"({m}, {k}) @ ({k}, {n})" if layout == "kn" else
-                    f"({m}, {k}) @ ({n}, {k}) view, row stride {b.stride(0)}, .T")
-            print(f"mxu_matmul kernel vs plain [{name} {str(dt)[6:]}] {what}: {held}")
-    return worst
-
-
 def mm_bound(m, k, n, dtype):
     """(bound ms, bound_by, ops, bytes) of one (M, K) @ (K, N): each input
     byte read once, each output byte written once, 2 ops a multiply-add at
@@ -987,7 +737,7 @@ def phase_dots_main(results, card, dev, batch, imgs, ctx):
     """10. The dots plan of the int8 main path against the conv plan."""
     import collections
 
-    from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
+    from yololp_tpu_torch.ops import cuda_conv
     from yololp_tpu_torch.quant import int8_infer
 
     inferer8, amax, conf = ctx["inferer8"], ctx["amax"], ctx["conf"]
@@ -999,10 +749,9 @@ def phase_dots_main(results, card, dev, batch, imgs, ctx):
         inferer8._run = run
         inferer8.warmup()
         log = LaunchLog(run.int8_model, int8_infer)
-        cuda_conv.launches = cuda_matmul.launches = cuda_nms.launches = 0
-        dets = inferer8.detect_batch(imgs)
-        torch.cuda.synchronize()
-        counts = (cuda_conv.launches, cuda_matmul.launches, cuda_nms.launches)
+        dets, counts = counted(lambda: inferer8.detect_batch(imgs), "int8_conv", "mxu_matmul",
+                               "greedy_nms")
+        counts = tuple(counts)
         log.remove()
         mm_shapes, n_conv = collections.Counter(), 0
         for n, h, w, c, o, k, stride, _, _ in log.launches:
@@ -1156,29 +905,6 @@ def phase_matmul_times(results, card, dev, rng, mm_shapes, amax, model):
     return tot
 
 
-def labelled_frames(rng, n, size, max_boxes=32):
-    """n RGB uint8 frames (n, size, size, 3) and their labels in memory: 1-4
-    plate-shaped boxes a frame, rows [pro, alp, ads0..5, cx, cy, w, h,
-    x1..y4] normalized, padded to max_boxes with a (n, max_boxes) mask."""
-    imgs = rng.integers(0, 256, (n, size, size, 3), np.uint8)
-    labels = np.zeros((n, max_boxes, 20), np.float32)
-    labels[..., :8] = -1
-    masks = np.zeros((n, max_boxes), np.float32)
-    for i in range(n):
-        k = int(rng.integers(1, 5))
-        w = rng.uniform(0.06, 0.3, k)
-        h = w * size / 3.78 / size
-        cxy = rng.uniform(0.2, 0.8, (k, 2))
-        x1, y1, x2, y2 = cxy[:, 0] - w / 2, cxy[:, 1] - h / 2, cxy[:, 0] + w / 2, cxy[:, 1] + h / 2
-        labels[i, :k, 0] = rng.integers(0, 31, k)
-        labels[i, :k, 1] = rng.integers(0, 24, k)
-        labels[i, :k, 2:8] = rng.integers(0, 37, (k, 6))
-        labels[i, :k, 8:12] = np.stack([cxy[:, 0], cxy[:, 1], w, h], -1)
-        labels[i, :k, 12:20] = np.stack([x1, y1, x1, y2, x2, y2, x2, y1], -1)
-        masks[i, :k] = 1
-    return imgs, labels, masks
-
-
 def self_labels(preds, size, max_boxes):
     """Labels (n, max_boxes, 20) and masks, as labelled_frames gives them,
     of each frame's detections (k, 28) in pixels: the first max_boxes of
@@ -1200,82 +926,23 @@ def self_labels(preds, size, max_boxes):
     return labels, masks
 
 
-def loader_batches(imgs, labels, masks, batch):
-    """The loader's batches (images, labels, masks, paths, shapes), the last
-    one short."""
-    return [(imgs[b0:b0 + batch], labels[b0:b0 + batch], masks[b0:b0 + batch],
-             [f"frame{b0 + j:03d}" for j in range(len(imgs[b0:b0 + batch]))],
-             [None] * len(imgs[b0:b0 + batch])) for b0 in range(0, len(imgs), batch)]
-
-
-def own_gts(preds):
-    """Each image's first two detections of positive size (random weights
-    also decode inverted boxes) as its gts, in the metric's target layout."""
-    own = []
-    for d in preds:
-        d = d[(d[:, 2] - d[:, 0] > 1) & (d[:, 3] - d[:, 1] > 1)][:2]
-        own.append(np.concatenate([d[:, 20:28], d[:, 0:4], d[:, 4:12]], 1))
-    return own
-
-
-def eval_on_card(ev, run_fn, decode_module, loader, kernels):
-    """Evaler.predict + eval through `run_fn` with the launch counts of the
-    `kernels` modules set to 0 just before and read just after; then the
-    plain CPU NMS on the card's own decodes (a forward hook on
-    `decode_module` keeps them) must give the same detections and metric."""
-    from yololp_tpu_torch.ops.nms import non_max_suppression
-
-    decodes = []
-    hook = decode_module.register_forward_hook(lambda m, a, out: decodes.append(out.detach()))
-    try:
-        for k in kernels:
-            k.launches = 0
-        preds, targets = ev.predict(run_fn, loader)
-        torch.cuda.synchronize()
-        launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
-    finally:
-        hook.remove()
-    metric = ev.eval(preds, targets)
-    if len(decodes) != len(loader):
-        raise AssertionError(f"{len(decodes)} decodes for {len(loader)} batches")
-    cpu_preds = []
-    for (imgs, *_), pred in zip(loader, decodes):
-        det, valid, num = non_max_suppression(pred.float().cpu(), conf_thres=ev.conf_thres,
-                                              iou_thres=ev.iou_thres, max_det=ev.max_det)
-        cpu_preds += [det[j][valid[j]][: int(num[j])].numpy() for j in range(len(imgs))]
-    for i, (a, b) in enumerate(zip(preds, cpu_preds)):
-        if not np.array_equal(a, b):
-            raise AssertionError(f"image {i}: the card's eval detections != plain CPU NMS on its decode")
-    metric_cpu = ev.eval(cpu_preds, targets)
-    if metric != metric_cpu:
-        raise AssertionError(f"eval metric on the card {metric} != plain CPU NMS's {metric_cpu}")
-    # on random weights no detection meets a label, so every bucket is empty;
-    # each image's own first detections, taken as its gts, fill the last one
-    own = own_gts(cpu_preds)
-    metric_own = ev.eval(preds, own)
-    if metric_own != ev.eval(cpu_preds, own) or (sum(map(len, own)) and metric_own[5][-1] == -1):
-        raise AssertionError(f"eval metric on the card's own detections as gts: {metric_own}")
-    return metric, launches, preds, metric_own, targets
-
-
 def phase_eval(results, card, dev, inferer, ctx8):
     """12. Evaler.predict and Evaler.eval on the card: 70 in-memory frames
     at 640 in loader batches of 32 (the tail of 6 padded), bf16 and then the
     int8 pallas plan on phase 7's calibration."""
     from yololp_tpu_torch.core.evaler import Evaler
-    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
     from yololp_tpu_torch.quant import int8_infer
 
     imgs, labels, masks = labelled_frames(np.random.default_rng(SEED + 12), EVAL_FRAMES, IMG)
     loader = loader_batches(imgs, labels, masks, BATCH)
     ev = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=inferer.conf_thres, device=dev)
     out = {}
-    runs = [("bf16", ev.make_infer_fn(inferer.model), inferer.model, (cuda_nms,))]
+    runs = [("bf16", ev.make_infer_fn(inferer.model), inferer.model, ("greedy_nms",))]
     inferer8 = ctx8["inferer8"]
     run8 = int8_infer.make_int8_infer_fn(inferer8.model, inferer8.variables, ctx8["amax"],
                                          conf_thres=ev.conf_thres, iou_thres=ev.iou_thres,
                                          max_det=ev.max_det, conv_impl="pallas", device=dev)
-    runs.append(("int8 pallas", run8, run8.int8_model, (cuda_nms, cuda_conv)))
+    runs.append(("int8 pallas", run8, run8.int8_model, ("greedy_nms", "int8_conv")))
     for label, run_fn, module, kernels in runs:
         ev.predict(run_fn, loader[:1])  # warm-up
         ev.speed_result = np.zeros(4)
@@ -1495,7 +1162,6 @@ def phase_training(results, card, dev, train_model, cfg, amax, eval_frames):
     from yololp_tpu_torch.layers.fuse import fuse_state_dict
     from yololp_tpu_torch.losses.loss import LossConfig, assign, loss_terms
     from yololp_tpu_torch.models.yolo import Model
-    from yololp_tpu_torch.ops import cuda_nms
     from yololp_tpu_torch.ops.division import unit_pixels
     from yololp_tpu_torch.solver.build import (SolverConfig, accumulate_steps, ema_update,
                                                label_groups, schedule, sgd_apply, warmup_steps)
@@ -1705,10 +1371,8 @@ def phase_training(results, card, dev, train_model, cfg, amax, eval_frames):
         eval_model_fn = trainer.eval_model
 
         def counted_eval():
-            cuda_nms.launches = 0
-            res = eval_model_fn()
-            torch.cuda.synchronize()
-            evals.append(cuda_nms.launches)
+            res, (n,) = counted(eval_model_fn, "greedy_nms")
+            evals.append(n)
             return res
 
         trainer.eval_model = counted_eval
@@ -1742,12 +1406,12 @@ def phase_training(results, card, dev, train_model, cfg, amax, eval_frames):
         ev2 = Evaler({}, batch_size=BATCH, img_size=IMG, conf_thres=0.0, device=dev)
         metric, launches, preds, _, _ = eval_on_card(
             ev2, ev2.make_infer_fn(deploy), deploy,
-            loader_batches(ev_imgs, ev_labels, ev_masks, BATCH), (cuda_nms,))
+            loader_batches(ev_imgs, ev_labels, ev_masks, BATCH), ("greedy_nms",))
         print(f"final_ckpt.msgpack reloaded through load_inference_variables == the trained EMA "
               f"fused ({len(reloaded)} tensors); eval on the card: launches {launches}, "
               f"detections {sum(map(len, preds))}, == the plain CPU NMS on the card's decode; "
               f"metric {json.dumps(metric)}")
-        if launches["cuda_nms"] < 1 or sum(map(len, preds)) == 0:
+        if launches["greedy_nms"] < 1 or sum(map(len, preds)) == 0:
             raise AssertionError(f"reloaded eval: launches {launches}, {sum(map(len, preds))} dets")
         out["trainer"] = dict(seconds=train_s, log=log, nms_launches_per_eval=evals,
                               checkpoints=saved, reload_launches=launches, metric=metric)
@@ -1807,7 +1471,6 @@ def phase_zoo(results, card, dev, batch):
     """15. Deploy inference of the zoo at published width and depth."""
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
-    from yololp_tpu_torch.ops import cuda_nms
 
     out = {}
     for i, name in enumerate(ZOO):
@@ -1826,10 +1489,7 @@ def phase_zoo(results, card, dev, batch):
                                  f"{bool(torch.isfinite(pred).all())}")
         inferer.conf_thres = full_k_gate(pred)
         inferer.warmup()
-        cuda_nms.launches = 0
-        det, valid, num = inferer._run(batch)
-        torch.cuda.synchronize()
-        launches = cuda_nms.launches
+        (det, valid, num), (launches,) = counted(lambda: inferer._run(batch), "greedy_nms")
         if launches < 1 or int(num.min()) < 1:
             raise AssertionError(f"{name}: greedy_nms launches {launches}, kept {int(num.min())}")
         ms = cuda_ms(lambda: inferer._run(batch), 2)
@@ -1872,7 +1532,6 @@ def phase_zoo_int8(results, card, dev, batch):
     conv_silu yolov6l's plan."""
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
-    from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms
     from yololp_tpu_torch.quant import int8_infer
     from yololp_tpu_torch.quant.quantize import calibrate
 
@@ -1894,10 +1553,8 @@ def phase_zoo_int8(results, card, dev, batch):
     n_links = sum(len(m.plan[1]) if isinstance(m, int8_infer.Int8RepBlock) else 1 for m in mods)
     run(batch)
     log = LaunchLog(run.int8_model, int8_infer)
-    cuda_conv.launches = cuda_nms.launches = 0
-    det, valid, num = run(batch)
-    torch.cuda.synchronize()
-    launches, nms_launches = cuda_conv.launches, cuda_nms.launches
+    (det, valid, num), (launches, nms_launches) = counted(lambda: run(batch), "int8_conv",
+                                                          "greedy_nms")
     log.remove()
     if launches != n_links or launches != len(log.launches) or nms_launches != 1:
         raise AssertionError(f"yolov6m int8 pallas: int8_conv launches {launches}, the plan's "
@@ -1946,10 +1603,8 @@ def phase_zoo_int8(results, card, dev, batch):
         r = int8_infer.make_int8_infer_fn(inf.model, inf.variables, amax, conf_thres=conf,
                                           conv_impl=impl, **kw)
         r(small)
-        cuda_conv.launches = cuda_matmul.launches = 0
-        outs = [t.cpu() for t in r(small)]
-        torch.cuda.synchronize()
-        plans[impl] = (outs, cuda_conv.launches, cuda_matmul.launches)
+        outs, counts = counted(lambda: [t.cpu() for t in r(small)], "int8_conv", "mxu_matmul")
+        plans[impl] = (outs, *counts)
     dots_counts = plans["dots"][1:]
     for name, a, b in zip(("det", "valid", "num"), plans["dots"][0], plans["conv"][0]):
         if not torch.equal(a, b):
@@ -1976,13 +1631,11 @@ def phase_zoo_int8(results, card, dev, batch):
     plan = int8_infer.graph_handoffs(amax_l, {p: None for p in amax_l}, relu_acts=False)
     if not all("Bifusion" in n and n.endswith(".cv2.conv") for n in handed) or len(handed) != len(plan):
         raise AssertionError(f"yolov6l (conv_silu) handoffs: {handed}")
-    cuda_conv.launches = 0
-    out_l = run_l(small)
-    torch.cuda.synchronize()
-    if not torch.isfinite(out_l[0]).all() or cuda_conv.launches < 1:
+    out_l, (l_launches,) = counted(lambda: run_l(small), "int8_conv")
+    if not torch.isfinite(out_l[0]).all() or l_launches < 1:
         raise AssertionError("yolov6l int8: non-finite detections or no int8_conv launch")
     print(f"zoo int8 yolov6l (conv_silu), conv plan, batch {ZOO_INT8_DOTS_BATCH}: int8_conv launches "
-          f"{cuda_conv.launches}; handoffs only from ReLU producers: {len(handed)} "
+          f"{l_launches}; handoffs only from ReLU producers: {len(handed)} "
           f"(the BiFusion cv2 -> downsample seams), none from a SiLU conv")
     results["zoo_int8"] = dict(launches=launches, planned=n_links, chains=chains,
                                nms_launches=nms_launches, img_s=img_s, runs_ms=ms,
@@ -2077,7 +1730,6 @@ def phase_repopt(results, card, dev, eval_frames):
     from yololp_tpu_torch.core.engine import Trainer
     from yololp_tpu_torch.core.evaler import Evaler
     from yololp_tpu_torch.core.train_step import init_train_state, make_train_step
-    from yololp_tpu_torch.ops import cuda_nms
     from yololp_tpu_torch.solver.repopt import (extract_scales, gradient_masks, load_scales,
                                                 reinitialize, save_scales)
     from yololp_tpu_torch.utils.config import Config
@@ -2146,18 +1798,16 @@ def phase_repopt(results, card, dev, eval_frames):
         eval_model = trainer._deploy_model()
         trainer._eval_cache = (eval_model, ev, loader_batches(ev_imgs, ev_labels, ev_masks, BATCH),
                                ev.make_infer_fn(eval_model))
-        cuda_nms.launches = 0
-        trainer.train()
-        torch.cuda.synchronize()
+        _, (nms_n,) = counted(trainer.train, "greedy_nms")
         log = [json.loads(line) for line in open(trainer.log_path)]
         print(f"[{card}] Trainer, repopt/yolov6s_opt with a scales file, {IMG}px batch {BATCH}, 1 "
               f"epoch of {trainer.steps_per_epoch} steps: {time.perf_counter() - t0:.1f} s; weight "
               f"decay {trainer.solver_cfg.weight_decay:g}; greedy_nms launches in its eval "
-              f"{cuda_nms.launches}; log {json.dumps(log)}")
-        if len(log) != 1 or cuda_nms.launches < 1 or not all(
+              f"{nms_n}; log {json.dumps(log)}")
+        if len(log) != 1 or nms_n < 1 or not all(
                 np.isfinite(v) for k, v in log[0].items() if k.startswith("train/")):
-            raise AssertionError(f"RepOpt Trainer: log {log}, NMS launches {cuda_nms.launches}")
-        out["trainer"] = dict(log=log, nms_launches=cuda_nms.launches)
+            raise AssertionError(f"RepOpt Trainer: log {log}, NMS launches {nms_n}")
+        out["trainer"] = dict(log=log, nms_launches=nms_n)
     results["repopt"] = out
     return out
 
@@ -2300,7 +1950,6 @@ def phase_sharded(results, card, dev, inferer, batch):
     batch 32 split over a mesh of 2 cards, or of 2 replicas on cuda:0 when
     there is one card."""
     from yololp_tpu_torch.core.evaler import Evaler
-    from yololp_tpu_torch.ops import cuda_nms
     from yololp_tpu_torch.ops.nms import non_max_suppression
     from yololp_tpu_torch.parallel.infer import make_sharded_infer_fn
 
@@ -2314,10 +1963,7 @@ def phase_sharded(results, card, dev, inferer, batch):
     sync_all()
     decodes, hooks = hooked_decodes(run.replicas)
     try:
-        cuda_nms.launches = 0
-        det, valid, num = run(staged)
-        sync_all()
-        launches = cuda_nms.launches
+        (det, valid, num), (launches,) = counted(lambda: run(staged), "greedy_nms")
     finally:
         for h in hooks:
             h.remove()
@@ -2367,10 +2013,8 @@ def phase_sharded(results, card, dev, inferer, batch):
     mesh_fn = ev.make_infer_fn(inferer.model, mesh=mesh)
     decodes, hooks = hooked_decodes(mesh_fn.replicas)
     try:
-        cuda_nms.launches = 0
-        preds2, targets2 = ev.predict(mesh_fn, loader)
-        sync_all()
-        eval_launches = cuda_nms.launches
+        (preds2, targets2), (eval_launches,) = counted(lambda: ev.predict(mesh_fn, loader),
+                                                       "greedy_nms")
     finally:
         for h in hooks:
             h.remove()
@@ -2427,7 +2071,7 @@ def ddp_rank(r, world, backend, devs, port, inp_path, out_path, tasks):
     from yololp_tpu_torch.core.train_step import init_train_state, make_train_step
     from yololp_tpu_torch.layers.fuse import fuse_state_dict
     from yololp_tpu_torch.models.yolo import Model
-    from yololp_tpu_torch.ops import cuda_nms
+    from yololp_tpu_torch.ops import _build
     from yololp_tpu_torch.utils.checkpoint import load_inference_variables
     from yololp_tpu_torch.utils.convert import load_state_dict_strict
 
@@ -2489,11 +2133,12 @@ def ddp_rank(r, world, backend, devs, port, inp_path, out_path, tasks):
             eval_model = trainer._deploy_model()
             trainer._eval_cache = (eval_model, ev, loader_batches(*inp["eval_frames"], BATCH),
                                    ev.make_infer_fn(eval_model))
-        cuda_nms.launches = 0
+        nms_n = _build.launches("greedy_nms")
         trainer.train()
         torch.cuda.synchronize(dev)
         ema = trainer.state.ema_state_dict()
-        out["trainer"] = dict(seconds=time.perf_counter() - t0, nms_launches=cuda_nms.launches,
+        nms_n = _build.launches("greedy_nms") - nms_n
+        out["trainer"] = dict(seconds=time.perf_counter() - t0, nms_launches=nms_n,
                               steps=trainer.steps_per_epoch,
                               ema_sum=float(sum(v.double().sum() for v in ema.values())))
         if r == 0:
@@ -2665,18 +2310,14 @@ def phase_ddp(results, card, dev, train_model, cfg, eval_frames):
     print(f"phase 20 in {out['seconds']:.0f} s")
     results["ddp"] = out
 
-# phase 21: the AOTInductor package's bf16 decode against eager's on the
-# same batch. Inductor fuses the elementwise work around the convs and
-# rounds bf16 at other places than eager (emulate_precision_casts narrows
-# the gap but fused passes still differ); the bound is phase 19's for two
-# runs of one bf16 model
-EXPORT_RTOL, EXPORT_ATOL_PX, EXPORT_ATOL_SCORE = 2e-2, 1.0, 2e-2
-# phase 21, the int8 package against the eager conv plan: its decode's boxes
-# and corners (columns :13) equal bit for bit (a flipped int8 code would move
-# them) and its scores within two fp32 ULPs at 1.0: Inductor's fused sigmoid
-# rounds in the last bit where eager's does not (found on the card). So the
-# detections are eager's up to the order of candidates whose scores lie that
-# close (swaps were seen on the card), and valid and num equal eager's
+# phase 21, each AOTInductor package against eager (bf16) or the eager conv
+# plan (int8) on the same batch: its decode's boxes and corners (columns
+# :13) equal bit for bit (Inductor's epilogues round where the kernel does,
+# under emulate_precision_casts; a flipped bf16 rounding or int8 code would
+# move them) and its scores within two fp32 ULPs at 1.0: Inductor's fused
+# sigmoid rounds in the last bit where eager's does not (found on the card).
+# So the detections are eager's up to the order of candidates whose scores
+# lie that close (swaps were seen on the card), and valid and num equal
 EXPORT_SCORE_ATOL = 2.0 ** -22
 RUNNER_ITERS = 20  # the C++ runner's --bench
 DISPATCH_CALLS = 200  # host cost of an op dispatch: calls timed
@@ -2739,13 +2380,16 @@ def host_us(fn, calls=DISPATCH_CALLS):
     return 1e6 * t / calls
 
 
-def counted(fn, *counters):
-    """fn()'s output and each module's `launches` over the call."""
-    for c in counters:
-        c.launches = 0
+def counted(fn, *kernels):
+    """(fn()'s output, each named kernel's launches during the call): the
+    counts (ops/_build.py) are read before the call and after the cards are
+    synchronized."""
+    from yololp_tpu_torch.ops import _build
+
+    before = [_build.launches(k) for k in kernels]
     out = fn()
-    torch.cuda.synchronize()
-    return out, [c.launches for c in counters]
+    sync_all()
+    return out, [_build.launches(k) - n for k, n in zip(kernels, before)]
 
 
 def _nms_custom_op(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float) -> torch.Tensor:
@@ -2762,7 +2406,7 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
     packages."""
     from yololp_tpu_torch.deploy import aoti_cpp
     from yololp_tpu_torch.export.export import build_export_fn, compile_aoti, export_program
-    from yololp_tpu_torch.ops import cuda_bias_act, cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
     from yololp_tpu_torch.ops.nms import select_candidates
     from yololp_tpu_torch.quant.int8_infer import make_int8_infer_fn
 
@@ -2786,14 +2430,14 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
         n_nms = sum("yololp_torch.greedy_nms_mask" in t for t in nodes)
         n_conv = sum("yololp_torch.int8_conv" in t for t in nodes)
         n_ba = sum("yololp_torch.bias_act" in t for t in nodes)
-        want, (eager_nms, eager_conv, eager_ba) = counted(eager, cuda_nms, cuda_conv,
-                                                          cuda_bias_act)
+        want, (eager_nms, eager_conv, eager_ba) = counted(eager, "greedy_nms", "int8_conv",
+                                                          "bias_act")
 
         path = os.path.join(tmp, f"{label}.pt2")
         torch.export.save(prog, path)
         loaded = torch.no_grad()(torch.export.load(path).module())
-        got, (nms_n, conv_n, ba_n) = counted(lambda: loaded(staged), cuda_nms, cuda_conv,
-                                             cuda_bias_act)
+        got, (nms_n, conv_n, ba_n) = counted(lambda: loaded(staged), "greedy_nms", "int8_conv",
+                                             "bias_act")
         kept = nms_on_own_decode(got, kw, f"{label} .pt2")
         if ((nms_n, conv_n, ba_n) != (1, eager_conv, eager_ba)
                 or (n_nms, n_conv, n_ba) != (1, eager_conv, eager_ba)):
@@ -2813,8 +2457,8 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
 
         aoti_path, compile_s = compile_aoti(prog, os.path.join(tmp, f"{label}.aoti.pt2"))
         pkg = torch._inductor.aoti_load_package(aoti_path)
-        got_a, (nms_a, conv_a, ba_a) = counted(lambda: pkg(staged), cuda_nms, cuda_conv,
-                                               cuda_bias_act)
+        got_a, (nms_a, conv_a, ba_a) = counted(lambda: pkg(staged), "greedy_nms", "int8_conv",
+                                               "bias_act")
         kept = nms_on_own_decode(got_a, kw, f"{label} AOTInductor")
         # the package's epilogues are Inductor's (export.inductor_program): no bias_act
         if (nms_a, conv_a, ba_a) != (1, eager_conv, 0):
@@ -2825,27 +2469,17 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
         dec_a, dec_e = got_a[3].float().cpu(), got[3].float().cpu()
         err_px = float((dec_a[..., :13] - dec_e[..., :13]).abs().max())
         err_score = float((dec_a[..., 13:] - dec_e[..., 13:]).abs().max())
-        if calib is None and not (
-                torch.allclose(dec_a[..., :13], dec_e[..., :13], rtol=EXPORT_RTOL,
-                               atol=EXPORT_ATOL_PX)
-                and torch.allclose(dec_a[..., 13:], dec_e[..., 13:], rtol=0,
-                                   atol=EXPORT_ATOL_SCORE)):
-            raise AssertionError(f"{label} AOTInductor decode vs eager: {err_px} px, "
-                                 f"{err_score} score, beyond the bf16 tolerance")
         same = [torch.equal(a, b) for a, b in zip(got_a[:3], want)]
         rows_differ = int((got_a[0] != want[0]).any(-1).sum())
-        if calib is not None and not (err_px == 0 and err_score <= EXPORT_SCORE_ATOL
-                                      and all(same[1:])):
-            raise AssertionError(f"int8 AOTInductor vs the eager conv plan: decode {err_px} "
-                                 f"px, {err_score} score apart; valid, num equal: "
-                                 f"{same[1:]}")
+        if not (err_px == 0 and err_score <= EXPORT_SCORE_ATOL and all(same[1:])):
+            raise AssertionError(f"{label} AOTInductor vs eager: decode {err_px} px, "
+                                 f"{err_score} score apart; valid, num equal: {same[1:]}")
         print(f"[{card}] phase 21 {label}: AOTInductor package compiled in {compile_s:.1f} s; "
               f"greedy_nms {nms_a}, int8_conv {conv_a}, bias_act {ba_a} launches a batch from "
               f"inside it; "
               f"det/valid/num == plain CPU NMS on its own decode (kept {kept[0]}..{kept[1]}); "
               f"its decode vs eager's max |diff| {err_px:.4g} px, {err_score:.4g} score "
-              f"(bf16 tolerance rtol {EXPORT_RTOL} + {EXPORT_ATOL_PX} px, "
-              f"{EXPORT_ATOL_SCORE} score; int8: 0 px, {EXPORT_SCORE_ATOL:.3g} score); "
+              f"(tolerance 0 px, {EXPORT_SCORE_ATOL:.3g} score); "
               f"det/valid/num equal to eager's: {same} ({rows_differ} detection rows "
               f"differ)", flush=True)
         profile = profile_batch(lambda: pkg(staged), card, label=f"{label} AOTInductor")
@@ -2873,7 +2507,7 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
         times["runner_pipelined"] = dict(ms=rec["pipelined"]["ms_per_batch"],
                                          img_s=rec["pipelined"]["images_per_sec"])
         print(f"[{card}] phase 21 {label}: C++ runner (built in {build_s:.1f} s beside phases "
-              f"3-20) --bench {RUNNER_ITERS} --batch {BATCH}: "
+              f"4-20) --bench {RUNNER_ITERS} --batch {BATCH}: "
               f"first LCG batch's num == the Python package's ({min(py_num)}..{max(py_num)}), "
               f"launches a batch {rec['launches_per_batch']}")
         print(f"[{card}] phase 21 {label} img/s at batch {BATCH} (uint8 on the card in, "
@@ -3079,7 +2713,6 @@ def phase_diag(results, card, dev, inferer, imgs):
     12's 70 frames, labelled with the float model's own detections), the
     scan-wall diagnostic at its defaults, and the encoded-image path."""
     from yololp_tpu_torch.core.evaler import Evaler
-    from yololp_tpu_torch.ops import cuda_nms
     from yololp_tpu_torch.tools import diag_province, diag_scan_walls, diag_strict
     from yololp_tpu_torch.utils.metrics import character_confusions
 
@@ -3095,11 +2728,11 @@ def phase_diag(results, card, dev, inferer, imgs):
     ev.speed_result = np.zeros(4)
     t0 = time.perf_counter()
     metric, launches, preds, _, targets = eval_on_card(ev, run_fn, inferer.model, loader,
-                                                      (cuda_nms,))
+                                                      ("greedy_nms",))
     check_s = time.perf_counter() - t0
     speed = ev.eval_speed()
     n_batches = -(-EVAL_FRAMES // BATCH)
-    if launches != {"cuda_nms": n_batches}:
+    if launches != {"greedy_nms": n_batches}:
         raise AssertionError(f"diagnostics: greedy_nms launched {launches}, want {n_batches}")
     t0 = time.perf_counter()
     (stats, slot_total, slot_right, n_wrong), mats = diag_strict.report(metric, preds, targets)
@@ -3126,7 +2759,7 @@ def phase_diag(results, card, dev, inferer, imgs):
         raise AssertionError(f"diag_province buckets {prov['buckets']} against the targets' "
                              f"widths {per_bucket} (want two or more) and gt {stats['gt']}")
     print(f"[{card}] diagnostics, yololps {IMG}px bf16, {EVAL_FRAMES} frames (self-labelled, "
-          f"spoiled): greedy_nms launches {launches['cuda_nms']}, dets == plain CPU NMS; funnel "
+          f"spoiled): greedy_nms launches {launches['greedy_nms']}, dets == plain CPU NMS; funnel "
           f"gt {stats['gt']} matched50 {stats['matched50']} matched70 {stats['matched70']} "
           f"corner_ok {stats['corner_ok']} cls_ok {stats['cls_ok']} both_ok {stats['both_ok']}; "
           f"wrong slots {wrong} == character_confusions' {off_diag}; province buckets "
@@ -3175,15 +2808,11 @@ def spatial_parity(what, model, mesh, images_u8, want, kw):
     the unsharded `want`, its detections against the plain CPU NMS on its
     own decode. Returns (launches, errors px and score, halo, kept min and
     max)."""
-    from yololp_tpu_torch.ops import cuda_nms
 
     run, put, recorded, decodes = spatial_run(model, mesh, torch.float32, kw)
     staged = put(images_u8)
     sync_all()
-    cuda_nms.launches = 0
-    out = recorded(staged)
-    sync_all()
-    launches = cuda_nms.launches
+    out, (launches,) = counted(lambda: recorded(staged), "greedy_nms")
     if launches != len(mesh):
         raise AssertionError(f"{what}: {launches} greedy_nms launches for {len(mesh)} "
                              "data rows and one batch")
@@ -3220,16 +2849,13 @@ def spatial_bf16(what, model, mesh, images_u8, kw):
     """make_spatial_infer_fn's bf16 (run, staged bands), its first batch
     held to n_data greedy_nms launches and its detections to the plain CPU
     NMS on its own decodes."""
-    from yololp_tpu_torch.ops import cuda_nms
 
     run, put, recorded, decodes = spatial_run(model, mesh, torch.bfloat16, kw)
     staged = put(images_u8)
     sync_all()
-    cuda_nms.launches = 0
-    out = recorded(staged)
-    sync_all()
-    if cuda_nms.launches != len(mesh):
-        raise AssertionError(f"{what}: {cuda_nms.launches} greedy_nms launches for "
+    out, (launches,) = counted(lambda: recorded(staged), "greedy_nms")
+    if launches != len(mesh):
+        raise AssertionError(f"{what}: {launches} greedy_nms launches for "
                              f"{len(mesh)} data rows and one batch")
     held_to_plain_nms(what, out, decodes, kw)
     return run, staged
@@ -3359,22 +2985,12 @@ def equal_outputs(what, got, want):
             raise AssertionError(f"{what}: {name} differs")
 
 
-def counted(fn, *counters):
-    """(fn's output, each counter module's launches during the call): the
-    counts are set to 0 just before the call and read just after it."""
-    for c in counters:
-        c.launches = 0
-    out = fn()
-    sync_all()
-    return out, [c.launches for c in counters]
-
-
 def phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, ctx8):
     """24. The JAX NMS's variants on the card: the "approx" candidate
     selector on the bf16, int8 and sharded paths against "topk", and the
     fixed bound nms_iters against the CPU (see the module docstring)."""
     from yololp_tpu_torch.core.inferer import Inferer
-    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
+    from yololp_tpu_torch.ops import cuda_nms
     from yololp_tpu_torch.ops.nms import non_max_suppression, select_candidates
     from yololp_tpu_torch.parallel.infer import make_sharded_infer_fn
     from yololp_tpu_torch.quant import int8_infer
@@ -3388,7 +3004,7 @@ def phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, c
     approx.conf_thres = inferer.conf_thres
     approx.warmup()
     want = inferer._run(batch)
-    got, (n_nms,) = counted(lambda: approx._run(batch), cuda_nms)
+    got, (n_nms,) = counted(lambda: approx._run(batch), "greedy_nms")
     if n_nms != 1:
         raise AssertionError(f"bf16 approx: {n_nms} greedy_nms launches for one batch")
     equal_outputs("bf16 _run approx vs topk", got, want)
@@ -3403,7 +3019,7 @@ def phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, c
                                           candidate_selector="approx", **kw8)
     want8 = run_t(batch)
     run_a(batch)
-    got8, (n_nms8, n_conv8) = counted(lambda: run_a(batch), cuda_nms, cuda_conv)
+    got8, (n_nms8, n_conv8) = counted(lambda: run_a(batch), "greedy_nms", "int8_conv")
     if n_nms8 != 1 or n_conv8 < 30:
         raise AssertionError(f"int8 approx: greedy_nms {n_nms8}x, int8_conv {n_conv8}x a batch")
     equal_outputs("int8 approx vs topk", got8, want8)
@@ -3420,7 +3036,7 @@ def phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, c
     staged = put(batch)
     want_s = run_t(staged)
     run_a(staged)
-    got_s, (n_nms_s,) = counted(lambda: run_a(staged), cuda_nms)
+    got_s, (n_nms_s,) = counted(lambda: run_a(staged), "greedy_nms")
     if n_nms_s != len(mesh):
         raise AssertionError(f"sharded approx: {n_nms_s} greedy_nms launches, mesh of {len(mesh)}")
     equal_outputs("sharded approx vs topk", got_s, want_s)
@@ -3440,7 +3056,7 @@ def phase_nms_variants(results, card, dev, weights, cfg, inferer, batch, pred, c
     for it in NMS_ITERS:
         (mask, dets), (n_it,) = counted(lambda: (
             cuda_nms.greedy_nms_mask(box_k, score_k, inferer.iou_thres, iters=it),
-            non_max_suppression(pred, nms_iters=it, **nkw)), cuda_nms)
+            non_max_suppression(pred, nms_iters=it, **nkw)), "greedy_nms")
         if n_it:
             raise AssertionError(f"nms_iters={it} launched the exact kernel {n_it}x")
         if not torch.equal(mask.cpu(), cuda_nms.greedy_nms_mask(box_cpu, score_cpu,
@@ -3538,20 +3154,20 @@ def int8_decode_vs_plain(run, x, want_pred, what):
     """The int8 plan `run` again on `x` with every int8 conv in the plain
     version (exact fp64 accumulator, the same epilogue) on the card: its
     decode's boxes and corners equal `want_pred`'s bit for bit and its
-    scores within EXPORT_SCORE_ATOL (phase 21's int8 tolerance). Returns
+    scores within EXPORT_SCORE_ATOL (phase 21's tolerance). Returns
     (max |diff| px, max |diff| score)."""
     from yololp_tpu_torch.ops import cuda_conv
     from yololp_tpu_torch.quant import int8_infer
 
     kernel = cuda_conv.int8_conv
     cuda_conv.int8_conv = cuda_conv.int8_conv_plain
-    cuda_conv.launches = 0
     try:
-        plain_pred = own_decode_check(int8_infer, run, x, f"{what}, plain int8_conv")[0]
+        (plain_pred, *_), (n,) = counted(
+            lambda: own_decode_check(int8_infer, run, x, f"{what}, plain int8_conv"), "int8_conv")
     finally:
         cuda_conv.int8_conv = kernel
-    if cuda_conv.launches:
-        raise AssertionError(f"{what}: the plain run launched int8_conv {cuda_conv.launches}x")
+    if n:
+        raise AssertionError(f"{what}: the plain run launched int8_conv {n}x")
     err_px = float((plain_pred[..., :13] - want_pred[..., :13]).abs().max())
     err_score = float((plain_pred[..., 13:] - want_pred[..., 13:]).abs().max())
     if not (err_px == 0 and err_score <= EXPORT_SCORE_ATOL):
@@ -3564,7 +3180,6 @@ def phase_bench(results, card, dev, export, weights, cfg):
     """25. The port's bench on the card (see the module docstring)."""
     from yololp_tpu_torch import bench
     from yololp_tpu_torch.core.inferer import Inferer, deploy_decode
-    from yololp_tpu_torch.ops import cuda_conv, cuda_nms
     from yololp_tpu_torch.ops.nms import select_candidates
     from yololp_tpu_torch.quant import int8_infer
 
@@ -3575,7 +3190,7 @@ def phase_bench(results, card, dev, export, weights, cfg):
     line, launches = {}, {}
 
     (ips, ips_sync), (n_nms,) = counted(
-        lambda: bench.bench_inference(model, b, IMG, iters=k, device=dev), cuda_nms)
+        lambda: bench.bench_inference(model, b, IMG, iters=k, device=dev), "greedy_nms")
     # a warm and a timed call of k chained steps, then 1 + 5 synced batches
     if n_nms != 2 * k + 6:
         raise AssertionError(f"bench_inference: {n_nms} greedy_nms launches, want {2 * k + 6}")
@@ -3599,8 +3214,8 @@ def phase_bench(results, card, dev, export, weights, cfg):
     int8_infer.make_int8_infer_fn = spy
     try:
         ips8, (n_nms8, n_conv8) = counted(
-            lambda: bench.bench_int8(model, state, b, IMG, iters=k, device=dev), cuda_nms,
-            cuda_conv)
+            lambda: bench.bench_int8(model, state, b, IMG, iters=k, device=dev), "greedy_nms",
+            "int8_conv")
     finally:
         int8_infer.make_int8_infer_fn = real
     per_step = export["int8"]["launches_eager"][1]
@@ -3628,7 +3243,7 @@ def phase_bench(results, card, dev, export, weights, cfg):
     full_k = dict(bench.NMS_KW, conf_thres=gate)
     (pred_k, _, kept), (n_k,) = counted(
         lambda: own_decode_check(bench, torch.inference_mode()(bench.e2e_fwd(model4, dev, full_k)),
-                                 x, f"bench e2e program b{b}, full K"), cuda_nms)
+                                 x, f"bench e2e program b{b}, full K"), "greedy_nms")
     topk = full_k["pre_nms_topk"]
     if n_k != 1 or not bool((select_candidates(pred_k, gate, topk)[1] > 0).all()):
         raise AssertionError(f"bench e2e program at gate {gate}: {n_k} greedy_nms launches, or "
@@ -3677,16 +3292,6 @@ def phase_bench(results, card, dev, export, weights, cfg):
 # the benchmark cells' models and the biased convs of one deploy forward of
 # each: the epilogue kernel launches once for each
 EPILOGUE_MODELS = {"yololps": 71, "yolov6m": 108}
-EPILOGUE_BATCH = 128
-# SiLU's allowance against PyTorch's silu and the plain version, in ulps of
-# the dtype: the kernel uses the same formula, v / (1 + expf(-v)) in fp32,
-# but PyTorch's build and this one's (-fmad=false) may compile expf's
-# libdevice code apart (on the CPU the plain version and F.silu take other
-# exps: up to 2 fp32 ulps, tests/test_torch_bias_act.py); none and ReLU are
-# held bit for bit
-EPILOGUE_SILU_ULPS = {torch.bfloat16: 1, torch.float32: 2}
-
-
 class ParentEpilogue:
     """Within the block, every biased conv of `model` carries a no-op forward
     pre-hook, so `layers/blocks.py:conv_act` runs it as itself (cuDNN's conv,
@@ -3726,47 +3331,6 @@ def epilogue_calls(inferer, batch):
     return calls
 
 
-def unfused_epilogue(y, b, act):
-    """PyTorch's unfused epilogue on a conv output `y`, in place as the conv
-    leaves it to PyTorch: `add_` of the broadcast bias, then the activation."""
-    import torch.nn.functional as F
-
-    z = y.add_(b.reshape(1, -1, 1, 1))
-    return (z, F.relu(z), F.silu(z))[act]
-
-
-def max_ulps(got, want):
-    """The largest |got - want| in ulps of want's dtype at want's value."""
-    fi = torch.finfo(want.dtype)
-    w = want.double()
-    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(fi.tiny)))) * fi.eps
-    return float(((got.double() - w).abs() / ulp).max())
-
-
-def check_epilogue(y, b, act, what):
-    """The kernel on `y` against the plain version and the unfused sequence
-    on the card; returns (max SiLU ulps, elements that differ)."""
-    from yololp_tpu_torch.ops import cuda_bias_act
-
-    got = cuda_bias_act.bias_act(y, b, act)
-    torch.cuda.synchronize()
-    plain = cuda_bias_act.bias_act_plain(y, b, act)
-    lib = unfused_epilogue(y.clone(), b, act)
-    if got.stride() != y.stride():
-        raise AssertionError(f"bias_act {what}: strides {got.stride()}, y's {y.stride()}")
-    ulps, differ = 0.0, 0
-    for name, want in (("plain", plain), ("unfused", lib)):
-        if torch.equal(got, want):
-            continue
-        n = int((got != want).sum())
-        u = max_ulps(got, want)
-        if act != 2 or u > EPILOGUE_SILU_ULPS[y.dtype]:
-            raise AssertionError(f"bias_act {what} act {act}: {n} elements differ from the "
-                                 f"{name} version, up to {u:.3g} ulps")
-        ulps, differ = max(ulps, u), max(differ, n)
-    return ulps, differ
-
-
 def profiled_device_ms(fn, name, bound_ms, calls=10):
     """The device ms a call of `fn` in the kernels named `name`, by
     torch.profiler; a session that records none of them, or a reading under
@@ -3786,14 +3350,13 @@ def profiled_device_ms(fn, name, bound_ms, calls=10):
 
 
 def phase_bias_act(results, card, dev):
-    """26. The deploy convs' epilogue kernel (csrc/bias_act.cu): against its
-    plain version and PyTorch's unfused add_ + activation at every distinct
-    shape of the yololps and yolov6m forwards at b128 (and fp32, NCHW, a
-    ragged count and an unaligned view); the two deploy forwards at b128
-    against the parent's sequence (decode bit for bit) with the launches
-    counted; times alone beside the bound, the plain version and the
-    unfused sequence, summed over a forward; the kernel's device time in a
-    profiled forward."""
+    """26. The deploy convs' epilogue kernel (csrc/bias_act.cu) at every
+    distinct shape of the yololps and yolov6m forwards at b128 (the card
+    test holds it to its plain version there): the two deploy forwards at
+    b128 against the parent's sequence (decode bit for bit where the
+    kernel's SiLU rounds as PyTorch's) with the launches counted; times
+    alone beside the bound, the plain version and the unfused sequence,
+    summed over a forward; the kernel's device time in a profiled forward."""
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
     from yololp_tpu_torch.ops import cuda_bias_act
@@ -3802,29 +3365,6 @@ def phase_bias_act(results, card, dev):
     rng = np.random.default_rng(SEED + 26)
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     out = {"models": {}}
-    silu = {torch.bfloat16: [0.0, 0], torch.float32: [0.0, 0]}  # max ulps, elements differ
-
-    def note(dtype, u_n):
-        silu[dtype] = [max(silu[dtype][0], u_n[0]), max(silu[dtype][1], u_n[1])]
-
-    def rand(*shape, dtype=torch.bfloat16, fmt=torch.channels_last):
-        t = (2 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
-        return t.contiguous(memory_format=fmt) if t.dim() == 4 else t
-
-    # the layouts and dtypes beside the main path's: fp32, NCHW, a count that
-    # is not a multiple of the vector, a base that is not 16-byte aligned
-    for act in (0, 1, 2):
-        for dtype in (torch.float32, torch.bfloat16):
-            note(dtype, check_epilogue(rand(8, 277, 20, 20, dtype=dtype), rand(277, dtype=dtype),
-                                       act, f"{dtype} C 277"))
-            note(dtype, check_epilogue(rand(8, 64, 40, 40, dtype=dtype,
-                                            fmt=torch.contiguous_format),
-                                       rand(64, dtype=dtype), act, f"{dtype} NCHW"))
-            note(dtype, check_epilogue(rand(1, 277, 3, 5, dtype=dtype), rand(277, dtype=dtype),
-                                       act, f"{dtype} ragged"))
-            flat = rand(3 + 2 * 12 * 5 * 7, dtype=dtype)
-            view = flat[3:].view(2, 5, 7, 12).permute(0, 3, 1, 2)
-            note(dtype, check_epilogue(view, rand(12, dtype=dtype), act, f"{dtype} unaligned"))
 
     for name, want_launches in EPILOGUE_MODELS.items():
         cfg, train = zoo_model(name, SEED + 26)
@@ -3841,10 +3381,13 @@ def phase_bias_act(results, card, dev):
             shapes[(c, h, w, act)] = shapes.get((c, h, w, act), 0) + 1
         ms = dict(kernel=0.0, device=0.0, plain=0.0, library=0.0)
         nbytes = 0
-        largest = None
+        largest, silu_apart = None, False
         for (c, h, w, act), n in sorted(shapes.items()):
-            y, b = rand(EPILOGUE_BATCH, c, h, w), rand(c)
-            note(torch.bfloat16, check_epilogue(y, b, act, f"{name} C {c} {h}x{w}"))
+            y = epilogue_operand((EPILOGUE_BATCH, c, h, w), gen, dev)
+            b = epilogue_operand((c,), gen, dev)
+            if act == 2:  # whether the kernel's SiLU rounds apart from PyTorch's here
+                silu_apart |= not torch.equal(cuda_bias_act.bias_act(y, b, act),
+                                              unfused_epilogue(y.clone(), b, act))
             size = 2 * y.numel() * y.element_size()
             t = dict(kernel=float(np.median(cuda_ms(lambda: cuda_bias_act.bias_act(y, b, act),
                                                     10, 3))),
@@ -3866,17 +3409,13 @@ def phase_bias_act(results, card, dev):
 
         batch = torch.from_numpy(rng.integers(0, 256, (EPILOGUE_BATCH, IMG, IMG, 3), np.uint8))
         batch = batch.pin_memory() if dev.type == "cuda" else batch  # as the benchmark stages
-        cuda_bias_act.launches = 0
-        fused = inf.predict(batch)
-        torch.cuda.synchronize()
-        launches = cuda_bias_act.launches
+        fused, (launches,) = counted(lambda: inf.predict(batch), "bias_act")
         if launches != want_launches:
             raise AssertionError(f"{name}: {launches} bias_act launches a b{EPILOGUE_BATCH} "
                                  f"forward, want {want_launches}")
         with ParentEpilogue(inf.model):
-            parent = inf.predict(batch)
-            torch.cuda.synchronize()
-            if cuda_bias_act.launches != want_launches:
+            parent, (parent_launches,) = counted(lambda: inf.predict(batch), "bias_act")
+            if parent_launches:
                 raise AssertionError(f"{name}: the parent's sequence launched bias_act")
             parent_ms = float(np.median(cuda_ms(lambda: inf.predict(batch), 1, 3)))
             prof_parent = profile_batch(lambda: inf.predict(batch), card,
@@ -3884,7 +3423,7 @@ def phase_bias_act(results, card, dev):
         equal = torch.equal(fused, parent)
         err = float((fused - parent).abs().max())
         del parent
-        if not equal and silu[torch.bfloat16][1] == 0:
+        if not equal and not silu_apart:
             raise AssertionError(f"{name}: the b{EPILOGUE_BATCH} decode differs from the "
                                  f"parent's sequence by up to {err}")
         fused_ms = float(np.median(cuda_ms(lambda: inf.predict(batch), 1, 3)))
@@ -3900,12 +3439,14 @@ def phase_bias_act(results, card, dev):
                    share_of_bound_alone=bound_ms / ms["kernel"],
                    share_of_bound_device=bound_ms / device_ms if device_ms else None,
                    largest=largest, decode_equal=equal, decode_max_diff=err,
+                   silu_rounds_apart=silu_apart,
                    forward_ms=dict(fused=fused_ms, parent=parent_ms),
                    parent_elementwise_ms=elementwise)
         out["models"][name] = rec
         print(f"[{card}] phase 26 {name} b{EPILOGUE_BATCH}: {launches} bias_act launches a "
               f"forward ({len(shapes)} shapes), decode == the parent's sequence: {equal} (max "
-              f"|diff| {err:.3g}); epilogue bytes {nbytes / 1e9:.3f} GB, bound {bound_ms:.3f} "
+              f"|diff| {err:.3g}; SiLU rounds apart from PyTorch's: {silu_apart}); epilogue "
+              f"bytes {nbytes / 1e9:.3f} GB, bound {bound_ms:.3f} "
               f"ms; kernel alone {ms['kernel']:.3f} ms ({100 * bound_ms / ms['kernel']:.1f}% "
               f"of bound), on device "
               + (f"{device_ms:.3f} ms ({100 * bound_ms / device_ms:.1f}%)" if device_ms
@@ -3921,102 +3462,26 @@ def phase_bias_act(results, card, dev):
               + ", ".join(f"{v:.3f} ms {k[:60]}" for k, v in elementwise.items()), flush=True)
         del fused, inf, weights
 
-    out["silu_max_ulps"] = {str(k): v[0] for k, v in silu.items()}
-    out["silu_elements_differ"] = {str(k): v[1] for k, v in silu.items()}
     out["seconds"] = time.perf_counter() - t_phase
     results["bias_act"] = out
-    print(f"[{card}] phase 26: SiLU against PyTorch's silu and the plain version, the most "
-          f"elements that differ in one case and their largest gap: bf16 "
-          f"{silu[torch.bfloat16][1]}, {silu[torch.bfloat16][0]:.3g} ulps (allowed "
-          f"{EPILOGUE_SILU_ULPS[torch.bfloat16]}); fp32 {silu[torch.float32][1]}, "
-          f"{silu[torch.float32][0]:.3g} ulps (allowed {EPILOGUE_SILU_ULPS[torch.float32]}); "
-          f"none and ReLU bit for bit; {out['seconds']:.0f} s", flush=True)
+    print(f"[{card}] phase 26 in {out['seconds']:.0f} s", flush=True)
     return out
 
 
 # ---------------- phase 27: the NMS gate (csrc/nms_gate.cu) ----------------
 
 GATE_SHAPES = {"yololps/yolov6m b128": (128, 8400), "yolov6l6 b32 1280": (32, 34000)}
-GATE_THRESHOLDS = (0.4, 0.7, 0.25)  # fp32 rounds the first up, the second down; exact
-
-
-def gate_decode(b, a, gen, dev):
-    """A synthetic (b, a, 290) fp32 decode on `dev`: boxes in pixels, obj 1,
-    corners, sigmoid scores."""
-    xy = torch.rand(b, a, 2, generator=gen, device=dev) * 640
-    wh = torch.rand(b, a, 2, generator=gen, device=dev) * 100 + 1
-    corners = torch.rand(b, a, 8, generator=gen, device=dev) * 640
-    cls = torch.sigmoid(torch.randn(b, a, 277, generator=gen, device=dev) * 3 - 2)
-    return torch.cat([xy, wh, torch.ones(b, a, 1, device=dev), corners, cls], -1).contiguous()
-
-
-def gate_edge_decode(gen, dev, thres):
-    """A (2, 96, 290) decode: rows 0-23 with exact ties inside each task, rows
-    24-31 with NaNs (a score, two in one task, obj, all scores, a box
-    coordinate), rows 32-55 whose score is exactly fp32(thres) or one of its
-    two fp32 neighbours (task maxima v, v, 2v, 0, 4v, 0, 0, 0: exact partial
-    sums in either gate)."""
-    tasks = [(0, 31), (31, 24)] + [(55 + 37 * i, 37) for i in range(6)]
-    pred = gate_decode(2, 96, gen, dev)
-    for row in range(24):
-        for k, (s, w) in enumerate(tasks):
-            at = torch.randperm(w, generator=gen, device=dev)[: 2 + (row + k) % 3]
-            pred[:, row, 13 + s + at] = 0.9 - 0.001 * k
-    nan = float("nan")
-    pred[:, 24, 13 + 31 + 5] = nan
-    pred[:, 25, 13 + 2] = nan
-    pred[:, 25, 13 + 9] = nan
-    pred[:, 26, 4] = nan
-    pred[:, 27, 13:] = nan
-    pred[:, 28, 0] = nan
-    pred[:, 29, 289] = nan
-    t32 = np.float32(thres)
-    for i, v in enumerate((np.nextafter(t32, np.float32(0)), t32,
-                           np.nextafter(t32, np.float32(1)))):
-        for j in range(8):
-            row = 32 + 8 * i + j
-            pred[:, row, 13:] = 0.0
-            for (s, w), scale in zip(tasks, (1, 1, 2, 0, 4, 0, 0, 0)):
-                pred[:, row, 13 + s + (j * 5) % w] = float(v) * scale
-    return pred
-
-
-def gate_equal(pred, thres, compat, what):
-    """Raise unless the kernel's four outputs equal the plain version's on
-    the card bit for bit (floats compared as their bits, so NaN too). Returns
-    the rows that passed the gate and the largest |kernel - plain| over the
-    float outputs (0 where the bits agree, inf where one side is NaN)."""
-    from yololp_tpu_torch.ops import cuda_nms_gate
-
-    got = cuda_nms_gate.nms_gate(pred, thres, compat)
-    want = cuda_nms_gate.nms_gate_plain(pred, thres, compat)
-    err = 0.0
-    for name, g, w in zip(("box", "score", "rest", "passed"), got, want):
-        if g.shape != w.shape or g.dtype != w.dtype:
-            raise AssertionError(f"nms_gate {what}: {name} is {tuple(g.shape)} {g.dtype}, the "
-                                 f"plain version's {tuple(w.shape)} {w.dtype}")
-        gb = g.view(torch.int32) if g.dtype == torch.float32 else g
-        wb = w.view(torch.int32) if w.dtype == torch.float32 else w
-        if g.dtype == torch.float32 and g.numel():
-            diff = (g - w).abs().nan_to_num(nan=float("inf"))
-            err = max(err, float(torch.where(gb == wb, 0.0, diff).max()))
-        if not torch.equal(gb, wb):
-            raise AssertionError(f"nms_gate {what} (thres {thres}, compat {compat}): {name} "
-                                 f"differs from the plain version in {int((gb != wb).sum())} "
-                                 f"elements, by up to {err}")
-    return int(got[3].sum()), err
-
 
 def phase_nms_gate(results, card, dev):
-    """27. The NMS gate kernel (csrc/nms_gate.cu): bit for bit against its
-    plain version on the card, on the served yololps b128 decode, the cells'
-    shapes and the edge cases; the NMS stage with it against the plain gate;
-    an exported program's nodes and launches; times alone and on device
-    beside the bytes' bound (see the module docstring)."""
+    """27. The NMS gate kernel (csrc/nms_gate.cu) on the served yololps b128
+    decode: bit for bit against its plain version, and the NMS stage with it
+    against the plain gate; an exported program's nodes and launches; times
+    alone and on device at the cells' shapes beside the bytes' bound (see
+    the module docstring)."""
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.export.export import inductor_program
     from yololp_tpu_torch.layers.fuse import fuse_model
-    from yololp_tpu_torch.ops import cuda_nms, cuda_nms_gate
+    from yololp_tpu_torch.ops import cuda_nms_gate
     from yololp_tpu_torch.ops import nms as nms_mod
 
     t_phase = time.perf_counter()
@@ -4025,21 +3490,10 @@ def phase_nms_gate(results, card, dev):
     errs = []
 
     def check(pred, thres, compat, what):
-        passed, err = gate_equal(pred, thres, compat, what)
+        args = (pred, thres, compat)
+        passed, err = gate_equal(args, cuda_nms_gate.nms_gate(*args), what)
         errs.append(err)
         return passed
-
-    # the edge cases, the odd row count and the offset view
-    for thres in GATE_THRESHOLDS:
-        edge = gate_edge_decode(gen, dev, thres)
-        for compat in (False, True):
-            out["cases"][f"edge {thres} {compat}"] = check(edge, thres, compat, "edges")
-    odd = gate_decode(3, 517, gen, dev)
-    out["cases"]["odd rows"] = check(odd, 0.5, False, "3 x 517")
-    flat = gate_decode(1, 2 * 1000, gen, dev).view(-1)
-    view = flat[290 + 1: 290 + 1 + 3 * 333 * 290].view(3, 333, 290)
-    assert view.is_contiguous() and view.data_ptr() % 16
-    out["cases"]["offset view"] = check(view, 0.5, True, "offset view")
 
     # the served decode: yololps at 640, every parameter seeded, b128
     cfg, train = zoo_model("yololps", SEED + 27)
@@ -4057,13 +3511,13 @@ def phase_nms_gate(results, card, dev):
 
     nkw = dict(conf_thres=median, iou_thres=0.45, max_det=300)
     (det, valid, num), (gate_n, nms_n) = counted(
-        lambda: nms_mod.non_max_suppression(served, **nkw), cuda_nms_gate, cuda_nms)
+        lambda: nms_mod.non_max_suppression(served, **nkw), "nms_gate", "greedy_nms")
     # the stage as it ran before the op: the plain gate in the op's place, on the card
     op = cuda_nms_gate.nms_gate
     cuda_nms_gate.nms_gate = cuda_nms_gate.nms_gate_plain
     try:
         (p_det, p_valid, p_num), (p_gate_n, _) = counted(
-            lambda: nms_mod.non_max_suppression(served, **nkw), cuda_nms_gate, cuda_nms)
+            lambda: nms_mod.non_max_suppression(served, **nkw), "nms_gate", "greedy_nms")
         plain_stage_ms = float(np.median(cuda_ms(
             lambda: nms_mod.non_max_suppression(served, **nkw), 10, 5)))
     finally:
@@ -4093,7 +3547,7 @@ def phase_nms_gate(results, card, dev):
         prog = torch.export.export(StageOnly(), (small,))
     n_node = sum("yololp_torch.nms_gate" in str(n.target) for n in prog.graph.nodes)
     n_inductor = sum("nms_gate" in str(n.target) for n in inductor_program(prog).graph.nodes)
-    got, (n_launch,) = counted(lambda: torch.no_grad()(prog.module())(small), cuda_nms_gate)
+    got, (n_launch,) = counted(lambda: torch.no_grad()(prog.module())(small), "nms_gate")
     want = StageOnly()(small)
     if (n_node, n_inductor, n_launch) != (1, 0, 1) or not all(
             torch.equal(a, b) for a, b in zip(got, want)):
@@ -4102,16 +3556,15 @@ def phase_nms_gate(results, card, dev):
     out["export"] = dict(nodes=n_node, inductor_nodes=n_inductor, launches=n_launch)
     del served, det, p_det
 
-    # the cells' shapes: bit for bit, then times beside the bound
+    # the cells' shapes: times beside the bound
     for label, (b, a) in GATE_SHAPES.items():
         pred = gate_decode(b, a, gen, dev)
-        passed = check(pred, 0.4, False, label)
-        check(pred, 0.4, True, label)
         rows = b * a
         nbytes = rows * (290 * 4 + 4 * 4 + 4 + 24 * 4 + 1)
         bound_ms = nbytes / HBM_BYTES_S * 1e3
         fn = lambda: cuda_nms_gate.nms_gate(pred, 0.4, False)  # noqa: E731
-        for _ in range(3):
+        passed = int(fn()[3].sum())
+        for _ in range(2):
             fn()
         alone = float(np.median(cuda_ms(fn, 100, 5)))
         device = profiled_device_ms(fn, "nms_gate_kernel", bound_ms, calls=20)
@@ -4123,7 +3576,7 @@ def phase_nms_gate(results, card, dev):
                                     share_device=device and bound_ms / device, passed=passed)
         on_device = ("not measured (the profiler lost launches)" if device is None else
                      f"{device:.4f} ms ({100 * bound_ms / device:.1f}%)")
-        print(f"[{card}] phase 27 {label} ({b} x {a}): bit for bit; {nbytes / 1e9:.4f} GB, "
+        print(f"[{card}] phase 27 {label} ({b} x {a}): {nbytes / 1e9:.4f} GB, "
               f"bound {bound_ms:.4f} ms; kernel alone {alone:.4f} ms "
               f"({100 * bound_ms / alone:.1f}% of bound), device {on_device}; "
               f"plain {plain:.3f} ms", flush=True)
@@ -4145,7 +3598,7 @@ def main():
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
     from yololp_tpu_torch.models.yolo import build_model
-    from yololp_tpu_torch.ops import _build, cuda_conv, cuda_nms, cuda_nms_gate
+    from yololp_tpu_torch.ops import _build, cuda_nms
     from yololp_tpu_torch.ops.nms import non_max_suppression, select_candidates
     from yololp_tpu_torch.utils.config import Config
 
@@ -4169,11 +3622,8 @@ def main():
         print(f"ptxas [{name}]: {len(regs)} kernel instances, {min(regs)}..{max(regs)} registers, "
               f"{spills} B spill stores (per instance: phases 8 and 11)")
 
-    # 3. kernel vs plain
-    rng = np.random.default_rng(SEED)
-    max_err = phase_kernels(cuda_nms, rng, dev)
-
     # 4. the main path
+    rng = np.random.default_rng(SEED)
     cfg = Config.named("yololps")
     gen = torch.Generator().manual_seed(SEED)
     train = build_model(cfg, seed=SEED, device="cpu")
@@ -4190,10 +3640,8 @@ def main():
     inferer.conf_thres = float(score_all[:, min(2 * TOPK, anchors) - 1].min())
     inferer.warmup()
 
-    cuda_nms.launches = cuda_nms_gate.launches = 0
-    dets = inferer.detect_batch(imgs)
-    torch.cuda.synchronize()
-    launches, gate_launches = cuda_nms.launches, cuda_nms_gate.launches
+    dets, (launches, gate_launches) = counted(lambda: inferer.detect_batch(imgs), "greedy_nms",
+                                              "nms_gate")
     if launches < 1:
         raise AssertionError("the main path did not launch the greedy_nms kernel")
     if gate_launches != 1:
@@ -4262,14 +3710,11 @@ def main():
     results["profile_bf16"] = profile_batch(lambda: inferer._run(batch), card)
     nms = phase_nms_times(results, card, cuda_nms, box_k, score_k, inferer.iou_thres, pred, kw)
 
-    # 6. int8 kernel vs plain; 7-8. the int8 main path and its times
-    int8_err = phase_int8_kernels(cuda_conv, rng, dev)
+    # 7-8. the int8 main path and its times
     int8_launches, run_err, tot, ctx8 = phase_int8_main(results, card, dev, cfg, weights, batch,
                                                         imgs, rng, inferer32, cpu32)
 
-    # 9. matmul kernel vs plain; 10. the dots int8 main path; 11. times
-    from yololp_tpu_torch.ops import cuda_matmul
-    mm_err = phase_matmul_kernels(cuda_matmul, rng, dev)
+    # 10. the dots int8 main path; 11. times
     mm_launches, mm_shapes = phase_dots_main(results, card, dev, batch, imgs, ctx8)
     mm_tot = phase_matmul_times(results, card, dev, rng, mm_shapes, ctx8["amax"], inferer.model)
 
@@ -4330,7 +3775,7 @@ def main():
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
                 "replaces": "yololp_tpu/ops/pallas_nms.py:29",
-                "launches": launches, "max_abs_err": max_err, "ms": nms32["ms"],
+                "launches": launches, "max_abs_err": None, "ms": nms32["ms"],
                 "plain_ms": nms32["plain_ms"], "bound_ms": nms32["bound_ms"],
                 "bound_by": nms32["bound_by"], "library_ms": None, "matches_plain": True,
                 "device_ms": nms32["device_ms"], "kept": nms32["kept"],
@@ -4345,7 +3790,7 @@ def main():
                {"name": "int8_conv", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/int8_conv.cu",
                 "replaces": "yololp_tpu/ops/pallas_conv.py:58",
-                "launches": int8_launches, "max_abs_err": max(int8_err, run_err),
+                "launches": int8_launches, "max_abs_err": run_err,
                 "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                 "bound_by": "bytes" if tot["bytes"] / HBM_BYTES_S > tot["ops"] / INT8_OPS_S
                 else "operations",
@@ -4356,9 +3801,11 @@ def main():
                {"name": "mxu_matmul", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/mxu_matmul.cu",
                 "replaces": "tools/probe_mxu_int8.py:44",
-                "launches": mm_launches, "max_abs_err": max(mm_err.values()),
-                "max_abs_err_int8": mm_err[torch.int8],
-                "tolerance": "int8 exact; bf16 2 K 2^-24 (|a|@|b|)",
+                "launches": mm_launches, "max_abs_err": None,
+                # this run holds only the int8 dots route to its exact accumulator
+                # (phase 10); the bf16 kernel is the card test's
+                "tolerance": "int8 exact (phase 10, the dots route)",
+                "bf16_checked_by": "tests/test_torch_cuda.py -m cuda",
                 "ms": mm_tot["ms"], "plain_ms": mm_tot["plain_ms"], "bound_ms": mm_tot["bound_ms"],
                 "bound_by": mm_tot["bound_by"],
                 "library_ms": (mm_tot["library_ms"]
@@ -4369,7 +3816,9 @@ def main():
                 "source": "yololp_tpu_torch/csrc/bias_act.cu",
                 "replaces": None,
                 "launches": epilogue["models"]["yololps"]["launches"],
-                "max_abs_err": None, "silu_max_ulps": epilogue["silu_max_ulps"],
+                "max_abs_err": None,
+                "silu_rounds_apart": {k: v["silu_rounds_apart"]
+                                      for k, v in epilogue["models"].items()},
                 "ms": epilogue["models"]["yololps"]["alone_ms"],
                 "device_ms": epilogue["models"]["yololps"]["device_ms"],
                 "plain_ms": epilogue["models"]["yololps"]["plain_ms"],

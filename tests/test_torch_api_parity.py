@@ -1,6 +1,6 @@
 """Every public name of the JAX package has its counterpart in the port,
 or stands on the list of names decided against, with its reason
-(ROADMAP.md, "Decided not to port", repeats each).
+(docs/port_decided.md, "Decided not to port", repeats each).
 
 Read by `ast`, importing neither package. A module of yololp_tpu/ maps to
 the same path under yololp_tpu_torch/, except the Pallas modules, whose
@@ -14,7 +14,7 @@ Below the names, every parameter of every public JAX function and method
 (a public class's methods, `__init__` and `__call__` included) has a
 parameter of the same name in its port counterpart, or stands in
 PARAM_RENAMED with the port's name, or in PARAM_DECIDED with the reason the
-port has none (ROADMAP repeats each). A flax module's `__call__` maps to
+port has none (docs/port_decided.md repeats each). A flax module's `__call__` maps to
 the torch module's `forward`; a method the port class inherits is looked up
 in its bases. And every `--flag` of a JAX CLI in tools/, with each of its
 `choices`, is in the port's parser of the same name.
@@ -28,6 +28,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_PKG, PORT_PKG = ROOT / "yololp_tpu", ROOT / "yololp_tpu_torch"
+# the port's record of what it leaves out, edited only with the port's code
+DECIDED_DOC = ROOT / "docs" / "port_decided.md"
 
 # JAX module -> (its counterpart in the port, {JAX name: port name})
 RENAMED = {
@@ -97,13 +99,15 @@ def test_public_names_have_a_counterpart(module):
 
 
 def test_names_decided_against_are_absent_and_in_the_roadmap():
-    roadmap = (ROOT / "ROADMAP.md").read_text(encoding="utf-8")
-    decided_section = roadmap[roadmap.index("Decided not to port"):]
+    """Each decided name is still absent from the port and recorded, in
+    backticks, in docs/port_decided.md (once ROADMAP.md's section)."""
+    record = DECIDED_DOC.read_text(encoding="utf-8")
+    decided_section = record[record.index("Decided not to port"):]
     for (module, name), reason in DECIDED.items():
         assert name in defined_names(parse(JAX_PKG / module)), (module, name)
         assert name not in held_names(parse(PORT_PKG / module)), (
             f"{name} is ported now: drop it from DECIDED")
-        assert f"`{name}`" in decided_section, f"ROADMAP does not record {name}"
+        assert f"`{name}`" in decided_section, f"{DECIDED_DOC.name} does not record {name}"
         assert reason
 
 
@@ -297,11 +301,12 @@ def test_parameters_have_a_counterpart(module):
 
 
 def test_parameter_tables_hold_no_stale_entry_and_the_roadmap_gives_each_reason():
-    """Every entry still matches a dropped parameter, and ROADMAP's "Decided
-    not to port" names each decided parameter and its function."""
+    """Every entry still matches a dropped parameter, and the "Decided not to
+    port" record (docs/port_decided.md, once ROADMAP.md's section) names
+    each decided parameter and its function."""
     dropped = [(m, q, p) for m, rows in DROPPED.items() for q, p, _ in rows if p is not None]
-    roadmap = (ROOT / "ROADMAP.md").read_text(encoding="utf-8")
-    decided_section = roadmap[roadmap.index("Decided not to port"):]
+    record = DECIDED_DOC.read_text(encoding="utf-8")
+    decided_section = record[record.index("Decided not to port"):]
     for table in (PARAM_RENAMED, PARAM_DECIDED):
         for key, value in table.items():
             assert value, key
@@ -311,9 +316,9 @@ def test_parameter_tables_hold_no_stale_entry_and_the_roadmap_gives_each_reason(
         names = {n for m, q, p in dropped if lookup({(module, func, param): 1}, m, q, p)
                  for n in (q, *q.split("."))}
         if param != "*":
-            assert f"`{param}`" in decided_section, f"ROADMAP does not record {param}"
+            assert f"`{param}`" in decided_section, f"{DECIDED_DOC.name} does not record {param}"
         assert any(f"`{n}`" in decided_section for n in names), (
-            f"ROADMAP names none of {sorted(names)} for {param}")
+            f"{DECIDED_DOC.name} names none of {sorted(names)} for {param}")
 
 
 # ---- command lines ---------------------------------------------------------

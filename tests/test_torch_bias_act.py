@@ -39,6 +39,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from benchmark import spec as S  # noqa: E402
+from kernel_cases import EPILOGUE_SHAPES  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -209,14 +210,21 @@ def test_a_hooked_conv_sees_its_own_call():
 
 
 @pytest.mark.parametrize("name, biased", [("yololps", 71), ("yolov6m", 108)])
-def test_a_deploy_forward_counts_every_biased_conv_fused(name, biased):
+def test_a_deploy_forward_counts_every_biased_conv_fused(name, biased, monkeypatch):
+    """The counters of one deploy forward; its epilogues' distinct (C, stride,
+    act) are the card cases' (tests/kernel_cases.py)."""
     inferer = Inferer(None, None, name, img_size=64, half=False, conf_thres=0.0, max_det=4,
                       device="cpu")
     batch = np.random.default_rng(0).integers(0, 255, (1, 64, 64, 3), np.uint8)
+    calls, real = [], cuda_bias_act.bias_act
+    monkeypatch.setattr(cuda_bias_act, "bias_act",
+                        lambda y, b, act: calls.append((y.shape[1], 64 // y.shape[2], act))
+                        or real(y, b, act))
     with profile(activities=[ProfilerActivity.CPU]):
         inferer.predict(batch)
     assert P.counters() == {"conv.biased": biased, "conv.epilogue_fused": biased,
                             "decode.anchors": 8 * 8 + 4 * 4 + 2 * 2}
+    assert len(calls) == biased and sorted(set(calls)) == EPILOGUE_SHAPES[name]
     assert S.reader("conv_epilogue_fused.serve")({}) == 100.0
 
 

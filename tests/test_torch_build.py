@@ -1,13 +1,19 @@
-"""The kernel build's cache key (ops/_build.py) and the layout helpers the
-kernels' tensor maps rely on (ops/cuda_matmul.py:rows16), on the CPU.
+"""The kernel build's cache key (ops/_build.py), the binding of every entry
+point the port calls, and the layout helpers the kernels' tensor maps rely
+on (ops/cuda_matmul.py:rows16), on the CPU.
 
 No nvcc is needed: a library's name is a hash of its source, the headers
 beside it and the flags, and is computed without building.
 """
 
+import ctypes
+import re
+import types
+
 import pytest
 import torch
 
+import yololp_tpu_torch.ops  # noqa: F401  (every ops/cuda_*.py declares its entry points)
 from yololp_tpu_torch.ops import _build, cuda_conv, cuda_matmul
 
 
@@ -94,23 +100,67 @@ def test_the_cpu_path_builds_no_weight_map():
     assert len(cuda_conv._WEIGHT_MAPS) == before
 
 
-def test_the_conv_launcher_binds_pointer_arguments_once():
+# a C parameter's or return type's ctypes type: every pointer (and the
+# stream, a pointer) c_void_p
+C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float,
+           "double": ctypes.c_double, "void": None}
+
+
+def c_prototype(lib: str, symbol: str):
+    """([argument types], return type) of `extern "C"` `symbol` in
+    csrc/<lib>.cu, as ctypes must declare them."""
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    m = re.search(r'extern "C" (\w+) ' + symbol + r"\(([^)]*)\)", src)
+    assert m, f"csrc/{lib}.cu defines no extern \"C\" {symbol}"
+    args = []
+    for param in m.group(2).split(","):
+        words = param.replace("const ", "").split()
+        ptr = "*" in param or words[0] == "cudaStream_t"
+        args.append(ctypes.c_void_p if ptr else C_TYPES[" ".join(words[:-1])])
+    return args, C_TYPES[m.group(1)]
+
+
+class StandIn:
+    """A ctypes function's stand-in: counts the assignments of its types
+    and refuses a call before they are set."""
+
+    def __init__(self):
+        object.__setattr__(self, "set", [])
+        object.__setattr__(self, "calls", 0)
+
+    def __setattr__(self, name, value):
+        self.set.append(name)
+        object.__setattr__(self, name, value)
+
+    def __call__(self, *args):
+        assert {"argtypes", "restype"} <= set(self.set), "called before it was bound"
+        object.__setattr__(self, "calls", self.calls + 1)
+        return 0
+
+
+@pytest.mark.parametrize("symbol", sorted(_build.ENTRIES))
+def test_every_entry_point_is_bound_once_before_its_first_call(symbol, monkeypatch):
     """ctypes passes an unbound Python int as a 32-bit C int, which cuts a
-    device pointer: both entry points must be bound before their first call."""
-    import ctypes
+    device pointer: each entry point the port calls is bound before its first
+    call, and only then, with its C prototype's types (every pointer
+    c_void_p); the launches add the device and the stream."""
+    entry = _build.ENTRIES[symbol]
+    fn, loads = StandIn(), []
+    monkeypatch.setattr(_build, "load",
+                        lambda name: loads.append(name) or types.SimpleNamespace(**{symbol: fn}))
+    monkeypatch.setattr(entry, "fn", None)
+    args = [0] * len(entry.argtypes)
+    entry(*args)
+    entry(*args)
+    assert loads == [entry.lib] and fn.set == ["argtypes", "restype"] and fn.calls == 2
+    assert (fn.argtypes, fn.restype) == c_prototype(entry.lib, symbol)
 
-    class Fn:
-        argtypes = None
-        restype = ctypes.c_int
 
-    class Lib:
-        int8_conv_launch = Fn()
-        int8_conv_weight_map = Fn()
-
-    lib = Lib()
-    fn = cuda_conv._launcher(lib)
-    assert fn is lib.int8_conv_launch
-    assert len(fn.argtypes) == 16 and fn.argtypes[0] is ctypes.c_void_p
-    assert fn.argtypes[1] is ctypes.c_void_p and fn.argtypes[-1] is ctypes.c_void_p
-    wm = lib.int8_conv_weight_map.argtypes
-    assert wm[0] is ctypes.c_void_p and wm[-1] is ctypes.c_void_p and len(wm) == 5
+def test_every_kernel_declares_its_launch_entry_point():
+    """Every kernel's `*_launch` of csrc/ is declared, and every declared
+    entry point is an `extern "C"` function of the source it names."""
+    externs = {m.group(1): p.stem for p in _build.CSRC.glob("*.cu")
+               for m in re.finditer(r'extern "C" \w+ (\w+)\(', p.read_text())}
+    assert {s for s in externs if s.endswith("_launch")} <= set(_build.ENTRIES)
+    assert {s: e.lib for s, e in _build.ENTRIES.items()} == {s: externs.get(s)
+                                                              for s in _build.ENTRIES}

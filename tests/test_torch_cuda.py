@@ -1,43 +1,38 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""Every kernel against its plain version, on the card.
 
-Marked `cuda`: each test skips without a card (the kernel has no CPU or
+Marked `cuda`: each test skips without a card (a kernel has no CPU or
 interpret mode). The machine with the card has no JAX, so run these there
 without the JAX-pinning conftest:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-The cases are chip_smoke.py's. greedy_nms: clustered boxes at the main
-path's B = 32, K = 512, a conf-gated zero tail, exact score ties, degenerate
-boxes, a 128-deep chain, K = 1024, B = 1 and 128, K = 1, 300 and 1000, every
-score 0 and a 512-deep chain across every band of rows; the keep-mask must
-be equal, not close (`-k nms` selects these). int8_conv: every RepBlock
-chain geometry of yololps at 640 (N = 32), a 3x3/s2, 1x1 with O = 277 and
-12, int8 without relu, extreme codes, the accumulator, C = 32 (K = 288)
-with M not a multiple of 128, a 3x3/s2 fp32 exit at O = 12 and a C that is
-not a multiple of 16; equal to the bit.
-mxu_matmul: the matmul probe's three shapes, ragged M, K and N, K = 288, a
-conv9dots tap at the main path's N = 32, and `matmul_nt` on a strided tap
-view of (O, 3, 3, C) weights; int8 equal, bf16 within 2 K 2**-24
-(|a| @ |b|) elementwise. Then chip_smoke.py's phase 12 at a small size (the
-evaler on the card against the plain CPU NMS on its decode) and the loss on
-the card against the CPU. nms_gate: chip_smoke.py's phase 27 cases (ties,
-NaN rows, scores at the threshold and its fp32 neighbours, an odd row
-count, an offset view, 8400 and 34000 anchors), every output equal to the
-plain version's to the bit; select_candidates on the card launches it once
-and raises on a decode it does not take.
+This is the card check of every kernel. Each op of ops/library.py is run
+on every case of tests/kernel_cases.py through `torch.ops.yololp_torch`
+(one launch a case) and held to its plain version: greedy_nms_mask, the
+keep-mask equal; int8_conv, equal to the bit; matmul and matmul_nt, int8
+equal and bf16 within 2 K 2**-24 (|a| @ |b|) elementwise; bias_act, none
+and ReLU bit for bit and SiLU within 1 bf16 / 2 fp32 ulps of the plain
+version and of PyTorch's unfused `add_` + activation; nms_gate, every
+output bit for bit (NaN too). Each op refuses what its kernel does not
+take, returns an empty output without a launch, and, on a second card,
+leaves the caller's current device as it was. Then chip_smoke.py's phase
+12 at a small size (the evaler on the card against the plain CPU NMS on
+its decode), the loss on the card against the CPU, and select_candidates,
+which launches the gate once and raises on a decode it does not take.
+`-k greedy_nms_mask` (or any op's name) selects one op.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_matmul, gate_decode, gate_edge_decode, gate_equal, int8_case,
-                        int8_specs, mask_cases, matmul_cases, matmul_operands)
-from yololp_tpu_torch.ops import cuda_conv, cuda_matmul, cuda_nms, cuda_nms_gate
+from kernel_cases import (OPS, eval_on_card, gate_decode, labelled_frames, loader_batches,
+                          randomize_parameters)
+from yololp_tpu_torch.ops import _build, library
 
-CASES = ["clustered_B32_K512", "conf_gated_zero_tail", "exact_score_ties",
-         "degenerate_boxes", "chain_128_deep", "clustered_K1024", "B1_K512", "B128_K512", "K1",
-         "K300_zero_tail", "K1000", "all_scores_zero", "chain_512_every_band"]
+RECORDS = {op.name: op for op in library.RECORDS}
+CASES = [(op, case) for op in RECORDS for case in OPS[op].cases()]
+REFUSALS = [(op, i) for op in RECORDS for i in range(len(OPS[op].refusals))]
 
 
 @pytest.fixture
@@ -48,99 +43,65 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def run_op(op, args):
+    return getattr(torch.ops.yololp_torch, op)(*args)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
-def test_greedy_nms_kernel_equals_plain(case, cuda_device):
-    boxes, scores, thr = mask_cases(np.random.default_rng(1))[case]
-    b, s = torch.from_numpy(boxes).to(cuda_device), torch.from_numpy(scores).to(cuda_device)
-    before = cuda_nms.launches
-    got = cuda_nms.greedy_nms_mask(b, s, thr)
+@pytest.mark.parametrize("op, case", CASES, ids=[f"{op}-{case}" for op, case in CASES])
+def test_kernel_equals_its_plain_version(op, case, cuda_device):
+    args = OPS[op].cases()[case](cuda_device)
+    kernel = RECORDS[op].kernel
+    before = _build.launches(kernel)
+    got = run_op(op, args)
     torch.cuda.synchronize()
-    assert cuda_nms.launches == before + 1
-    assert torch.equal(got.cpu(), cuda_nms.greedy_nms_mask_plain(b.cpu(), s.cpu(), thr))
+    assert _build.launches(kernel) == before + 1
+    OPS[op].check(args, got, case)  # raises on a mismatch
 
 
 @pytest.mark.cuda
-def test_greedy_nms_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    boxes = torch.zeros(2, 8, 4, device=cuda_device)
-    with pytest.raises(ValueError, match="limit"):
-        cuda_nms.greedy_nms_mask(torch.zeros(1, 1025, 4, device=cuda_device),
-                                 torch.ones(1, 1025, device=cuda_device), 0.45)
-    with pytest.raises(ValueError, match="contiguous"):
-        cuda_nms.greedy_nms_mask(boxes.transpose(0, 1), torch.ones(8, 2, device=cuda_device), 0.45)
-    empty = cuda_nms.greedy_nms_mask(boxes[:0], torch.ones(0, 8, device=cuda_device), 0.45)
-    assert empty.shape == (0, 8)
-
-
-INT8_CASES = list(int8_specs())
+@pytest.mark.parametrize("op, i", REFUSALS, ids=[f"{op}-{i}" for op, i in REFUSALS])
+def test_the_op_refuses_what_the_kernel_does_not_take(op, i, cuda_device):
+    make, err, match = OPS[op].refusals[i]
+    with pytest.raises(err, match=match):
+        run_op(op, make(cuda_device))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", INT8_CASES)
-def test_int8_conv_kernel_equals_plain(case, cuda_device):
-    x, w, a, b, stride, relu, dt = int8_case(np.random.default_rng(2), int8_specs()[case])
-    args = [torch.from_numpy(t).to(cuda_device) for t in (x, w, a, b)]
-    before = cuda_conv.launches
-    got = cuda_conv.int8_conv(*args, stride, relu, dt)
+@pytest.mark.parametrize("op", list(RECORDS))
+def test_an_empty_output_launches_nothing(op, cuda_device):
+    args = OPS[op].empty(cuda_device)
+    before = _build.launches(RECORDS[op].kernel)
+    got, want = run_op(op, args), RECORDS[op].plain(*args)
     torch.cuda.synchronize()
-    assert cuda_conv.launches == before + 1
-    assert got.dtype == dt
-    assert torch.equal(got, cuda_conv.int8_conv_plain(*args, stride, relu, dt))
+    assert _build.launches(RECORDS[op].kernel) == before
+    for g, w in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+        assert g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.cuda
-def test_int8_conv_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    x = torch.zeros(1, 8, 8, 32, dtype=torch.int8, device=cuda_device)
-    w = torch.zeros(16, 3, 3, 32, dtype=torch.int8, device=cuda_device)
-    a = torch.ones(16, device=cuda_device)
-    with pytest.raises(TypeError, match="int8"):
-        cuda_conv.int8_conv(x.float(), w, a, a)
-    with pytest.raises(ValueError, match="contiguous"):
-        cuda_conv.int8_conv(x.permute(0, 2, 1, 3), w, a, a)
-    with pytest.raises(TypeError, match="out_dtype"):
-        cuda_conv.int8_conv(x, w, a, a, out_dtype=torch.float16)
-
-
-MM_CASES = list(matmul_cases())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
-@pytest.mark.parametrize("case", MM_CASES)
-def test_mxu_matmul_kernel_equals_plain(case, dtype, cuda_device):
-    m, k, n, layout = matmul_cases()[case]
-    a, b = matmul_operands(np.random.default_rng(3), m, k, n, dtype, layout, cuda_device)
-    before = cuda_matmul.launches
-    check_matmul(cuda_matmul, a, b, case, nt=layout != "kn")  # raises on a mismatch
-    assert cuda_matmul.launches == before + 1
-
-
-@pytest.mark.cuda
-def test_mxu_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    a = torch.zeros(64, 32, dtype=torch.int8, device=cuda_device)
-    b = torch.zeros(32, 16, dtype=torch.int8, device=cuda_device)
-    with pytest.raises(TypeError, match="int8"):
-        cuda_matmul.matmul(a.float(), b.float())
-    with pytest.raises(ValueError, match="contiguous"):
-        cuda_matmul.matmul(a, b.t().contiguous().t())
-    with pytest.raises(ValueError, match="inner"):
-        cuda_matmul.matmul(a, b.t().contiguous())
-    assert torch.equal(cuda_matmul.matmul(a[:, :0], b[:0]),
-                       torch.zeros(64, 16, dtype=torch.int32, device=cuda_device))
-    # matmul_nt takes b_t's rows as they are: they must start on 16 bytes
-    w = torch.zeros(16, 3, 3, 40, dtype=torch.int8, device=cuda_device)
-    with pytest.raises(ValueError, match="16 bytes"):
-        cuda_matmul.matmul_nt(torch.zeros(64, 48, dtype=torch.int8, device=cuda_device)[:, :40],
-                              w[:, 1, 1, :])  # rows 360 bytes apart
-    with pytest.raises(ValueError, match="16 bytes"):
-        cuda_matmul.matmul_nt(a, b.t())
+@pytest.mark.parametrize("op", list(RECORDS))
+def test_kernels_on_a_second_card_leave_the_callers_device(op, cuda_device):
+    """Each entry point sets the device of its tensors; the launch helper
+    puts the caller's current device back, so that what PyTorch does next
+    (an event, a new tensor) stays on it. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    case, make = next(iter(OPS[op].cases().items()))
+    args = make(dev)
+    for _ in range(2):  # the greedy_nms entry point remembers the last device it set
+        got = run_op(op, args)
+        assert torch.cuda.current_device() == 0
+    OPS[op].check(args, got, f"{case} on cuda:1")
+    torch.cuda.synchronize(dev)
 
 
 @pytest.mark.cuda
 def test_eval_on_the_card_equals_the_plain_nms_on_its_decode(cuda_device):
     """chip_smoke.py phase 12 at a small size: yololpn at 128 px, bf16, 10
     labelled frames in loader batches of 4 (a padded tail of 2)."""
-    from chip_smoke import eval_on_card, labelled_frames, loader_batches, randomize_parameters
     from yololp_tpu_torch.core.evaler import Evaler
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
@@ -154,8 +115,8 @@ def test_eval_on_the_card_equals_the_plain_nms_on_its_decode(cuda_device):
     loader = loader_batches(*labelled_frames(np.random.default_rng(0), 10, 128), 4)
     ev = Evaler({}, batch_size=4, img_size=128, conf_thres=0.01, device=cuda_device)
     metric, launches, preds, own, _ = eval_on_card(ev, ev.make_infer_fn(inf.model), inf.model,
-                                                   loader, (cuda_nms,))
-    assert launches == {"cuda_nms": 3} and len(preds) == 10 and len(metric) == 7
+                                                   loader, ("greedy_nms",))
+    assert launches == {"greedy_nms": 3} and len(preds) == 10 and len(metric) == 7
     assert len(own) == 7
 
 
@@ -201,34 +162,15 @@ def test_loss_on_the_card_equals_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("compat", [False, True])
-@pytest.mark.parametrize("thres", [0.4, 0.7, 0.25])
-def test_nms_gate_kernel_equals_plain_on_the_edges(thres, compat, cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(27)
-    gate_equal(gate_edge_decode(gen, cuda_device, thres), thres, compat, "edges")  # raises
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b, a", [(3, 517), (4, 8400), (1, 34000)])
-def test_nms_gate_kernel_equals_plain(b, a, cuda_device):
-    gen = torch.Generator(device=cuda_device).manual_seed(b * a)
-    pred = gate_decode(b, a, gen, cuda_device)
-    for compat in (False, True):
-        gate_equal(pred, 0.4, compat, f"{b} x {a}")
-    flat = pred.view(-1)[1:1 + (b * a - 1) * 290]  # 4 bytes past a 16-byte boundary
-    gate_equal(flat.view(1, b * a - 1, 290), 0.4, False, "offset view")
-
-
-@pytest.mark.cuda
 def test_select_candidates_on_the_card_launches_the_gate_kernel_once(cuda_device):
     from yololp_tpu_torch.ops.nms import select_candidates
 
     gen = torch.Generator(device=cuda_device).manual_seed(28)
     pred = gate_decode(2, 8400, gen, cuda_device)
-    cuda_nms_gate.launches = 0
+    before = _build.launches("nms_gate")
     got = select_candidates(pred, 0.4, 512)
     torch.cuda.synchronize()
-    assert cuda_nms_gate.launches == 1
+    assert _build.launches("nms_gate") == before + 1
     want = select_candidates(pred.cpu(), 0.4, 512)
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
     strided = torch.stack([pred, pred], 2).view(2, 2 * 8400, 290)[:, ::2]
@@ -238,39 +180,3 @@ def test_select_candidates_on_the_card_launches_the_gate_kernel_once(cuda_device
         select_candidates(pred.double(), 0.4, 512)
 
 
-@pytest.mark.cuda
-def test_nms_gate_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
-    pred = torch.zeros(2, 8, 290, device=cuda_device)
-    for bad in (pred.double(), pred[..., :289], pred.transpose(0, 1)):
-        with pytest.raises((ValueError, TypeError)):
-            cuda_nms_gate.nms_gate(bad, 0.4)
-    empty = cuda_nms_gate.nms_gate(pred[:, :0], 0.4)
-    assert [t.shape for t in empty] == [(2, 0, 4), (2, 0), (2, 0, 24), (2, 0)]
-
-
-@pytest.mark.cuda
-def test_kernels_on_a_second_card_leave_the_callers_device(cuda_device):
-    """Each ctypes launcher sets the device of its tensors; the wrapper puts
-    the caller's current device back, so that what PyTorch does next (an
-    event, a new tensor) stays on it. Needs two cards."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA cards")
-    dev = torch.device("cuda", 1)
-    torch.cuda.set_device(0)
-    boxes, scores, thr = mask_cases(np.random.default_rng(1))["clustered_B32_K512"]
-    b, s = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
-    for _ in range(2):  # the NMS launcher remembers the last device it set
-        keep = cuda_nms.greedy_nms_mask(b, s, thr)
-        assert torch.cuda.current_device() == 0
-    assert torch.equal(keep.cpu(), cuda_nms.greedy_nms_mask_plain(b.cpu(), s.cpu(), thr))
-    x, w, a, bias, stride, relu, dt = int8_case(np.random.default_rng(2),
-                                                int8_specs()["int8_no_relu"])
-    args = [torch.from_numpy(t).to(dev) for t in (x, w, a, bias)]
-    got = cuda_conv.int8_conv(*args, stride, relu, dt)
-    assert torch.cuda.current_device() == 0
-    assert torch.equal(got, cuda_conv.int8_conv_plain(*args, stride, relu, dt))
-    m, k, n, layout = matmul_cases()[MM_CASES[0]]
-    a8, b8 = matmul_operands(np.random.default_rng(3), m, k, n, torch.int8, layout, dev)
-    check_matmul(cuda_matmul, a8, b8, "on cuda:1", nt=layout != "kn")  # raises on a mismatch
-    assert torch.cuda.current_device() == 0
-    torch.cuda.synchronize(dev)

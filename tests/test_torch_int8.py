@@ -27,7 +27,7 @@ import conftest  # noqa: F401  (forces the JAX cpu backend)
 from test_torch_quant import deploy_pair, frames, jax_amax
 from yololp_tpu.ops import pallas_conv as jpc
 from yololp_tpu.quant import int8_infer as jint8
-from yololp_tpu_torch.ops import cuda_conv, cuda_matmul
+from yololp_tpu_torch.ops import _build, cuda_conv, cuda_matmul
 from yololp_tpu_torch.quant import int8_infer as tint8
 
 torch.set_num_threads(2)
@@ -210,13 +210,13 @@ def test_int8_apply_matches_jax(int8_setup, conv_impl, stage_handoffs, monkeypat
     matmuls = []
     real_mm = cuda_matmul.matmul_nt
     monkeypatch.setattr(cuda_matmul, "matmul_nt", lambda a, b: matmuls.append(1) or real_mm(a, b))
-    before = cuda_conv.launches
+    before = _build.launches("int8_conv")
     x_t = torch.from_numpy(x).permute(0, 3, 1, 2)
     model = tint8.build_int8_model(tmodel, amax, ttable, conv_impl=conv_impl,
                                    stage_handoffs=stage_handoffs)
     with torch.inference_mode():
         got = model(x_t).numpy()
-    assert cuda_conv.launches == before  # the CPU runs the plain version
+    assert _build.launches("int8_conv") == before  # the CPU runs the plain version
     # only the dots plan reaches the matmul (9 a 3x3/s1 conv, 1 a 1x1/s1)
     assert bool(matmuls) == (conv_impl == "dots"), len(matmuls)
     # yololpn has 8 RepBlock chains; each must run as an int8 chain, by the

@@ -1,5 +1,6 @@
 """The port stands alone: no module of yololp_tpu_torch/ (export/ and
-deploy/ included), and not chip_smoke.py, imports jax, flax or the JAX
+deploy/ included), and neither chip_smoke.py nor the card cases it shares
+with the card test (tests/kernel_cases.py) imports jax, flax or the JAX
 package (cv2, msgpack, yaml and PIL only inside functions), and every entry
 point refuses to fall back to the CPU when no GPU is present; the trainer
 refuses a mesh that is not its process group."""
@@ -22,7 +23,7 @@ LAZY = {"cv2", "msgpack", "yaml", "PIL"}
 
 
 def port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests/kernel_cases.py"]
 
 
 def port_modules():
@@ -39,7 +40,7 @@ def imported_roots(tree):
 
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
-    assert (ROOT / "chip_smoke.py").is_file()
+    assert (ROOT / "chip_smoke.py").is_file() and (ROOT / "tests/kernel_cases.py").is_file()
     for path in port_files():
         tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
         top_level = set(tree.body)

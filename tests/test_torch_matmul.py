@@ -9,8 +9,8 @@ in Pallas interpret mode.
 
 Tolerances: int8 products, accumulators and conv taps exactly equal. bf16:
 |port - JAX| <= 2 K 2**-24 (|a| @ |b|) elementwise: both sum exact fp32
-products of bf16 values in fp32, in other orders (the bound chip_smoke.py
-holds the kernel to on the card).
+products of bf16 values in fp32, in other orders (the bound the card test,
+tests/test_torch_cuda.py, holds the kernel to).
 """
 
 import importlib.util
@@ -26,7 +26,7 @@ from jax import lax
 
 import conftest  # noqa: F401  (forces the JAX cpu backend)
 from yololp_tpu.quant import int8_infer as jint8
-from yololp_tpu_torch.ops import cuda_conv, cuda_matmul
+from yololp_tpu_torch.ops import _build, cuda_conv, cuda_matmul
 from yololp_tpu_torch.quant import int8_infer as tint8
 from yololp_tpu_torch.tools import probe_mxu_int8 as tprobe
 
@@ -101,9 +101,9 @@ def test_matmul_wrapper_refuses_what_the_kernel_does_not_take():
         cuda_matmul.matmul(a, b.t().contiguous().t())
     with pytest.raises(ValueError, match="cuda"):
         cuda_matmul.matmul_cuda(a, b)
-    before = cuda_matmul.launches
+    before = _build.launches("mxu_matmul")
     cuda_matmul.matmul(a, b)
-    assert cuda_matmul.launches == before  # the CPU runs the plain version
+    assert _build.launches("mxu_matmul") == before  # the CPU runs the plain version
 
 
 @pytest.mark.parametrize("n,s,c,o", [(2, 8, 64, 48), (1, 7, 24, 40)])
@@ -193,6 +193,6 @@ def test_matmul_nt_wrapper_refuses_what_the_kernel_does_not_take():
         cuda_matmul.matmul_nt_cuda(a, torch.zeros(6, 48, dtype=torch.int8)[:, :40])
     with pytest.raises(ValueError, match="cuda"):
         cuda_matmul.matmul_nt_cuda(a48, torch.zeros(6, 48, dtype=torch.int8)[:, :40])
-    before = cuda_matmul.launches
+    before = _build.launches("mxu_matmul")
     got = cuda_matmul.matmul_nt(a, w[:, 1, 1, :])  # the CPU takes any strides
-    assert cuda_matmul.launches == before and got.shape == (8, 6)
+    assert _build.launches("mxu_matmul") == before and got.shape == (8, 6)

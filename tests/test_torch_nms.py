@@ -206,29 +206,3 @@ def test_kernel_wrapper_checks_inputs():
         cuda_nms.greedy_nms_mask_cuda(torch.zeros(1, 1025, 4), torch.ones(1, 1025), 0.45)
     with pytest.raises(ValueError, match="cuda"):
         cuda_nms.greedy_nms_mask_cuda(boxes, torch.ones(2, 8), 0.45)
-
-
-
-def test_the_launcher_is_bound_once(monkeypatch):
-    """ctypes passes an unbound Python int as a 32-bit C int, which cuts a
-    device pointer: the launcher is bound before its first call, and only
-    then, not on every launch."""
-    import ctypes
-
-    loads = []
-
-    class Lib:
-        class greedy_nms_mask_launch:  # noqa: N801 (a ctypes function's stand-in)
-            argtypes = None
-            restype = ctypes.c_int
-
-    def load(name):
-        loads.append(name)
-        return Lib
-
-    monkeypatch.setattr(cuda_nms._build, "load", load)
-    monkeypatch.setattr(cuda_nms, "_FN", None)
-    fn = cuda_nms._launcher()
-    assert cuda_nms._launcher() is fn and loads == ["greedy_nms"]
-    assert fn.argtypes[:3] == [ctypes.c_void_p] * 3 and fn.argtypes[-1] is ctypes.c_void_p
-    assert fn.argtypes[5] is ctypes.c_float and fn.restype is ctypes.c_int

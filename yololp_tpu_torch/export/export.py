@@ -48,7 +48,7 @@ import torch
 from torch import nn
 
 from yololp_tpu_torch.core.inferer import Inferer
-from yololp_tpu_torch.ops import cuda_bias_act, cuda_nms_gate
+from yololp_tpu_torch.ops import library
 from yololp_tpu_torch.ops.division import unit_pixels
 from yololp_tpu_torch.ops.nms import non_max_suppression
 from yololp_tpu_torch.quant.int8_infer import build_int8_model, quantize_kernels_int8
@@ -132,17 +132,15 @@ def openmp_compiler() -> str:
 
 
 def inductor_program(program: torch.export.ExportedProgram) -> torch.export.ExportedProgram:
-    """`program` with each deploy conv's epilogue op (`yololp_torch::bias_act`)
-    and the NMS gate (`yololp_torch::nms_gate`) decomposed into their plain
-    arithmetic (`cuda_bias_act.bias_act_plain`, `cuda_nms_gate.nms_gate_plain`),
-    every other node kept. Inductor fuses an op so written into the passes
+    """`program` with the ops whose records say `decompose` (each deploy
+    conv's epilogue, `yololp_torch::bias_act`, and the NMS gate,
+    `yololp_torch::nms_gate`) written as their plain versions, every other
+    node kept. Inductor fuses an op so written into the passes
     around it (the concatenation, max-pool or decode an epilogue feeds, the
     decode the gate reads), which an opaque op prevents: kept as the op, the
     epilogue made a yololps b128 package take 35.5 ms a batch against 24.9 ms
     with Inductor's fusion (an H100 at 700 W)."""
-    return program.run_decompositions(
-        {torch.ops.yololp_torch.bias_act.default: cuda_bias_act.bias_act_plain,
-         torch.ops.yololp_torch.nms_gate.default: cuda_nms_gate.nms_gate_plain})
+    return program.run_decompositions(library.decompositions())
 
 
 def compile_aoti(program: torch.export.ExportedProgram, path: str) -> Tuple[str, float]:

@@ -1,5 +1,5 @@
 """Ops of the port. Importing the package registers the kernels' custom ops
-(`library.py`), which the wrappers in cuda_nms, cuda_conv, cuda_matmul and
-cuda_bias_act call."""
+(`library.py`, from the `OPS` records of cuda_nms, cuda_conv, cuda_matmul,
+cuda_bias_act and cuda_nms_gate), which those modules' wrappers call."""
 
 from yololp_tpu_torch.ops import library  # noqa: F401

@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources (csrc/*.cu) with nvcc and load them.
+"""Build the package's CUDA sources (csrc/*.cu) with nvcc, load them, bind
+their entry points and launch them; and the record each op is declared by.
 
 Each source becomes a shared library with a plain C interface, loaded with
 ctypes. Libraries go to build/kernels/ at the checkout root, named by a hash
@@ -8,6 +9,14 @@ unchanged one is reused. The kernels that use TMA take cuTensorMapEncodeTiled
 from the driver at run time (cudaGetDriverEntryPoint), so nothing links
 against libcuda. `build_all` starts one nvcc per source, all at once. A failed
 build raises with nvcc's stderr.
+
+Each `extern "C"` function the port calls is declared once, as an `Entry`
+(a kernel's launch entry point as a `Kernel`), with its C argument and
+return types: bound at first use, then kept. `Kernel.launch` runs on the
+tensors' device and current stream and counts its launches, read as
+`launches(name)`. An op of the `yololp_torch` namespace is declared once,
+as an `Op` record in its ops/cuda_*.py, and registered from it by
+ops/library.py.
 """
 
 from __future__ import annotations
@@ -20,7 +29,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, NamedTuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -137,3 +148,80 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+# every declared entry point, by symbol; every kernel's launch entry, by source
+ENTRIES: Dict[str, "Entry"] = {}
+KERNELS: Dict[str, "Kernel"] = {}
+
+
+class Entry:
+    """The `extern "C"` function `symbol` of csrc/<lib>.cu with its C types,
+    bound at its first call (the library built then if need be) and kept.
+    ctypes passes an unbound Python int as a 32-bit C int, which cuts a
+    pointer: every pointer is declared c_void_p."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: list, restype=ctypes.c_int):
+        self.lib, self.symbol = lib, symbol
+        self.argtypes, self.restype = list(argtypes), restype
+        self.fn = None
+        ENTRIES[symbol] = self
+
+    def bind(self):
+        if self.fn is None:
+            fn = getattr(load(self.lib), self.symbol)
+            fn.argtypes, fn.restype = self.argtypes, self.restype
+            self.fn = fn
+        return self.fn
+
+    def __call__(self, *args):
+        return (self.fn or self.bind())(*args)
+
+
+class Kernel(Entry):
+    """A kernel's launch entry point: `argtypes`, then (int device,
+    cudaStream_t stream), returning 0 or an error code that `failure`
+    formats."""
+
+    def __init__(self, lib: str, symbol: str, argtypes: list, failure: str = "cudaError {}"):
+        super().__init__(lib, symbol, [*argtypes, ctypes.c_int, ctypes.c_void_p])
+        self.failure, self.count = failure, 0
+        KERNELS[lib] = self
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on `device`'s current stream; raise on a nonzero return."""
+        fn = self.fn or self.bind()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # the entry point sets its device: the guard puts the caller's back after
+        with torch.cuda.device(device):
+            err = fn(*args, device.index or 0, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.lib} kernel launch failed: " + self.failure.format(err))
+        self.count += 1
+
+
+def launches(name: str) -> int:
+    """How often csrc/<name>.cu's kernel has been launched in this process."""
+    return KERNELS[name].count
+
+
+class Op(NamedTuple):
+    """One op of the `yololp_torch` namespace. `check`, `plain`, `cuda` and
+    `fake` each take the op's arguments: `check` raises on what no
+    implementation takes; `plain` is the kernel's plain version (the op's
+    CPU kernel); `cuda` launches csrc/<kernel>.cu's kernel, or raises on
+    anything it does not take; `fake` gives the outputs' shapes, dtypes and
+    strides without data. With `decompose`, export.inductor_program writes
+    the op as `plain` for Inductor to fuse."""
+
+    schema: str
+    kernel: str
+    check: Callable
+    plain: Callable
+    cuda: Callable
+    fake: Callable
+    decompose: bool = False
+
+    @property
+    def name(self) -> str:
+        return self.schema.split("(", 1)[0]

@@ -5,8 +5,8 @@ csrc/bias_act.cu and its plain PyTorch version.
 (ops/library.py), which runs the kernel on a CUDA tensor and the plain
 version on a CPU tensor; on a CUDA tensor it launches the kernel or raises.
 It returns a new tensor `act(y + b[c])`, with c the channel (dim 1 of the
-NCHW tensor y) and `act` 0 none, 1 ReLU, 2 SiLU. `launches` counts the
-kernel's launches.
+NCHW tensor y) and `act` 0 none, 1 ReLU, 2 SiLU. `_build.launches("bias_act")`
+counts the kernel's launches.
 
 The kernel replaces no Pallas kernel: XLA fused this epilogue into its
 convolution on the TPU, while PyTorch's cuDNN route adds the bias in a
@@ -33,7 +33,9 @@ from yololp_tpu_torch.ops import _build
 NONE, RELU, SILU = 0, 1, 2
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the dtypes the kernel takes, by its number
 
-launches = 0
+_LAUNCH = _build.Kernel("bias_act", "bias_act_launch",
+                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
 
 
 def _check(y: torch.Tensor, b: torch.Tensor, act: int):
@@ -57,8 +59,13 @@ def _check(y: torch.Tensor, b: torch.Tensor, act: int):
 
 def bias_act_plain(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
     """act(y + b[c]) in plain PyTorch, in the kernel's arithmetic; the
-    output keeps y's layout."""
-    z = (y.float() + b.float().reshape(1, -1, 1, 1)).to(y.dtype)
+    output keeps y's layout. The add is in y's dtype, which PyTorch computes
+    in fp32 and rounds once. Written as an explicit fp32 -> bf16 -> fp32
+    chain, the rounding is dropped by torch 2.11's Inductor (its joint-graph
+    pass `pointless_convert`) when export.inductor_program decomposes the op:
+    the SiLU then read the unrounded sum, and 31% of its bf16 outputs
+    differed from the kernel's on an H100."""
+    z = y + b.reshape(1, -1, 1, 1)
     if act == NONE:
         return z
     v = z.float()
@@ -66,25 +73,8 @@ def bias_act_plain(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
     return out.to(y.dtype)
 
 
-_FN = None
-
-
-def _launcher():
-    """bias_act_launch of the built library, bound once."""
-    global _FN
-    if _FN is None:
-        fn = _build.load("bias_act").bias_act_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
 def bias_act_cuda(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
     """Launch csrc/bias_act.cu on CUDA tensors; raise on any refusal."""
-    global launches
     _check(y, b, act)
     if y.device.type != "cuda":
         raise ValueError(f"the kernel takes cuda tensors, got {y.device}")
@@ -93,14 +83,8 @@ def bias_act_cuda(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
         return out
     # channel of flat element e: (e / inner) % C
     inner = 1 if y.is_contiguous(memory_format=torch.channels_last) else y.shape[2] * y.shape[3]
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    # the launcher sets its device: the guard puts the caller's back after
-    with torch.cuda.device(y.device):
-        err = _launcher()(y.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(), y.shape[1],
-                          inner, DTYPES[y.dtype], int(act), y.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"bias_act kernel launch failed: cudaError {err}")
-    launches += 1
+    _LAUNCH.launch(y.device, y.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(), y.shape[1],
+                   inner, DTYPES[y.dtype], int(act))
     return out
 
 
@@ -108,3 +92,8 @@ def bias_act(y: torch.Tensor, b: torch.Tensor, act: int) -> torch.Tensor:
     """act(y + b[c]) through the op `yololp_torch::bias_act`: the kernel on a
     CUDA tensor, the plain version on a CPU tensor."""
     return torch.ops.yololp_torch.bias_act(y, b, int(act))
+
+
+OPS = (_build.Op("bias_act(Tensor y, Tensor b, int act) -> Tensor", "bias_act", _check,
+                 bias_act_plain, bias_act_cuda, lambda y, b, act: torch.empty_like(y),
+                 decompose=True),)

@@ -4,7 +4,8 @@ csrc/int8_conv.cu and its plain PyTorch version.
 Counterpart of yololp_tpu/ops/pallas_conv.py. `int8_conv` calls the custom
 op `yololp_torch::int8_conv` (ops/library.py), which runs the kernel on a
 CUDA tensor and the plain version on a CPU tensor; on a CUDA tensor it
-launches the kernel or raises. `launches` counts the kernel's launches.
+launches the kernel or raises. `_build.launches("int8_conv")` counts the
+kernel's launches.
 
 Layouts are the kernel's: activations NHWC, weights (O, KH, KW, C), one
 contiguous reduction vector per output channel. KH = KW in {1, 3}, stride in
@@ -32,7 +33,15 @@ from yololp_tpu_torch.ops import _build
 from yololp_tpu_torch.ops.cuda_matmul import rows16
 from yololp_tpu_torch.ops.division import reciprocal
 
-launches = 0
+_LAUNCH = _build.Kernel("int8_conv", "int8_conv_launch",
+                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
+                        failure="error {} (a cudaError_t, or 9999 / 10000 + CUresult from the "
+                                "tensor-map encoder)")
+_WEIGHT_MAP = _build.Entry("int8_conv", "int8_conv_weight_map",
+                           [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                            ctypes.c_void_p])
+_PLAN = _build.Entry("int8_conv", "int8_conv_plan", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                     restype=None)
 
 # (address, shape, version, device) of a weight tensor -> (the tensor, the
 # rows the map reads, the map's 128 bytes); the oldest dropped past the cap
@@ -94,7 +103,7 @@ def int8_conv_plain(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
     return epilogue_plain(int8_conv_acc_plain(x_q, w_q, stride), a, b, relu, out_dtype)
 
 
-def _check(x_q, w_q, a, b, stride, out_dtype):
+def _check(x_q, w_q, a, b, stride, relu, out_dtype):
     if x_q.dim() != 4 or w_q.dim() != 4:
         raise ValueError(f"x_q must be (N, H, W, C) and w_q (O, KH, KW, C), got "
                          f"{tuple(x_q.shape)} and {tuple(w_q.shape)}")
@@ -119,8 +128,7 @@ def _check(x_q, w_q, a, b, stride, out_dtype):
 def int8_conv_cuda(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
                    out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """Launch csrc/int8_conv.cu on CUDA tensors; raise on any refusal."""
-    global launches
-    _check(x_q, w_q, a, b, stride, out_dtype)
+    _check(x_q, w_q, a, b, stride, relu, out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"the kernel takes cuda tensors, got {x_q.device}")
     if not all(t.is_contiguous() for t in (x_q, w_q, a, b)):
@@ -131,26 +139,14 @@ def int8_conv_cuda(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
     out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=x_q.device)
     if out.numel() == 0:
         return out
-    lib = _build.load("int8_conv")
-    fn = _launcher(lib)
-    wmap = weight_map(lib, w_q)
-    stream = torch.cuda.current_stream(x_q.device).cuda_stream
-    # the launcher sets its device: the guard puts the caller's back after
-    with torch.cuda.device(x_q.device):
-        err = fn(x_q.data_ptr(), wmap, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 n, h, w, c, o, kh, stride, _MODES[out_dtype], int(relu),
-                 x_q.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: error {err} (a cudaError_t, "
-                           f"or 9999 / 10000 + CUresult from the tensor-map encoder)")
-    launches += 1
+    _LAUNCH.launch(x_q.device, x_q.data_ptr(), weight_map(w_q), a.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), n, h, w, c, o, kh, stride, _MODES[out_dtype], int(relu))
     return out
 
 
-def weight_map(lib: ctypes.CDLL, w_q: torch.Tensor):
+def weight_map(w_q: torch.Tensor):
     """The TMA map of w_q (O, KH, KW, C) as (O, K) rows, built once per
-    weight tensor (a copy with rows padded to 16 bytes where K % 16 != 0);
-    `lib` bound by _launcher."""
+    weight tensor (a copy with rows padded to 16 bytes where K % 16 != 0)."""
     version = -1 if w_q.is_inference() else w_q._version
     key = (w_q.data_ptr(), tuple(w_q.shape), version, w_q.device)
     hit = _WEIGHT_MAPS.get(key)
@@ -158,7 +154,7 @@ def weight_map(lib: ctypes.CDLL, w_q: torch.Tensor):
         o = w_q.shape[0]
         rows, ld = rows16(w_q.reshape(o, -1))
         buf = ctypes.create_string_buffer(128)
-        err = lib.int8_conv_weight_map(rows.data_ptr(), o, rows.shape[1], ld, buf)
+        err = _WEIGHT_MAP(rows.data_ptr(), o, rows.shape[1], ld, buf)
         if err != 0:
             raise RuntimeError(f"int8_conv weight map failed: error {err}")
         hit = _WEIGHT_MAPS[key] = (w_q, rows, buf)
@@ -170,24 +166,9 @@ def weight_map(lib: ctypes.CDLL, w_q: torch.Tensor):
 def plan(o: int, out_dtype: torch.dtype = torch.int8) -> dict:
     """The tile, stage count and dynamic shared memory of a launch with O
     output channels writing out_dtype (built on first use)."""
-    lib = _build.load("int8_conv")
     out = (ctypes.c_int * 4)()
-    lib.int8_conv_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.int8_conv_plan(o, _MODES[out_dtype], out)
+    _PLAN(o, _MODES[out_dtype], out)
     return dict(tile=(out[0], out[1]), stages=out[2], smem_bytes=out[3])
-
-
-def _launcher(lib: ctypes.CDLL):
-    """int8_conv_launch and int8_conv_weight_map of `lib`, bound once."""
-    fn = lib.int8_conv_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        wm = lib.int8_conv_weight_map
-        wm.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        wm.restype = ctypes.c_int
-    return fn
 
 
 def int8_conv(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
@@ -197,6 +178,24 @@ def int8_conv(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
     tensor, the plain version on a CPU tensor."""
     return torch.ops.yololp_torch.int8_conv(x_q, w_q, a, b, int(stride), bool(relu),
                                             out_mode(out_dtype))
+
+
+def _by_mode(fn):
+    """`fn` (..., out_dtype) as the op calls it, with the kernel's mode number."""
+    return lambda x_q, w_q, a, b, stride, relu, mode: fn(x_q, w_q, a, b, stride, relu,
+                                                         mode_dtype(mode))
+
+
+def _empty_out(x_q, w_q, a, b, stride, relu, out_dtype):
+    n, h, w, _ = x_q.shape
+    o, kh = w_q.shape[:2]
+    return x_q.new_empty((n, out_size(h, kh, stride), out_size(w, kh, stride), o),
+                         dtype=out_dtype)
+
+
+OPS = (_build.Op("int8_conv(Tensor x_q, Tensor w_q, Tensor a, Tensor b, int stride, bool relu, "
+                 "int out_mode) -> Tensor", "int8_conv", _by_mode(_check),
+                 _by_mode(int8_conv_plain), _by_mode(int8_conv_cuda), _by_mode(_empty_out)),)
 
 
 def conv3x3_int8_fused(x_q, w9, a, b, relu: bool = True,

@@ -5,8 +5,8 @@ Counterpart of `_mm_kernel` / `pallas_matmul` (tools/probe_mxu_int8.py:44),
 the probe's tiled matmul, and the product under the `dots` lowering of the
 int8 convs (quant/int8_infer.py:conv3x3_as_dots). `matmul` and `matmul_nt`
 run the kernel on CUDA tensors and the plain version on CPU tensors; on CUDA
-tensors they launch the kernel or raise. `launches` counts the kernel's
-launches.
+tensors they launch the kernel or raise. `_build.launches("mxu_matmul")`
+counts the kernel's launches.
 
 Types: bf16 x bf16 -> fp32, int8 x int8 -> int32. Two entries:
 - `matmul(a, b)`: a (M, K) and b (K, N), both contiguous (the JAX
@@ -37,10 +37,17 @@ import torch
 
 from yololp_tpu_torch.ops import _build
 
-launches = 0
-
 # input dtype -> (the kernel's mode, output dtype)
 _MODES = {torch.int8: (0, torch.int32), torch.bfloat16: (1, torch.float32)}
+
+_LAUNCH = _build.Kernel("mxu_matmul", "mxu_matmul_launch",
+                        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_longlong, ctypes.c_int],
+                        failure="error {} (a cudaError_t, or 9999 / 10000 + CUresult from the "
+                                "tensor-map encoder)")
+_PLAN = _build.Entry("mxu_matmul", "mxu_matmul_plan", [ctypes.c_longlong, ctypes.c_void_p],
+                     restype=None)
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -69,6 +76,10 @@ def _check_types(a: torch.Tensor, b: torch.Tensor) -> None:
         raise TypeError(f"a and b must both be one of {list(_MODES)}, got {a.dtype}, {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"a on {a.device}, b on {b.device}")
+
+
+def _empty(a: torch.Tensor, n: int) -> torch.Tensor:
+    return a.new_empty((a.shape[0], n), dtype=_MODES[a.dtype][1])
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -115,36 +126,17 @@ def rows16(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return buf[:, :t.shape[1]], ld
 
 
-_FN = None
-
-
-def _launcher():
-    """mxu_matmul_launch of the built library, bound once."""
-    global _FN
-    if _FN is None:
-        fn = _build.load("mxu_matmul").mxu_matmul_launch
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_void_p] + [ctypes.c_longlong] * 3
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
 def plan(n: int) -> dict:
     """The tile, stage count and dynamic shared memory of a launch with N
     output columns (built on first use)."""
-    lib = _build.load("mxu_matmul")
     out = (ctypes.c_int * 4)()
-    lib.mxu_matmul_plan.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
-    lib.mxu_matmul_plan(n, out)
+    _PLAN(n, out)
     return dict(tile=(out[0], out[1]), stages=out[2], smem_bytes=out[3])
 
 
 def _launch(a, lda, b, ldb, b_mn: bool, n: int) -> torch.Tensor:
     """One launch: a (M, K) rows lda apart; b (N, K) rows ldb apart, or with
     b_mn (K, N) rows ldb apart."""
-    global launches
     m, k = a.shape
     mode, out_dtype = _MODES[a.dtype]
     if k == 0:
@@ -152,16 +144,8 @@ def _launch(a, lda, b, ldb, b_mn: bool, n: int) -> torch.Tensor:
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
-    fn = _launcher()
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    # the launcher sets its device: the guard puts the caller's back after
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), lda, b.data_ptr(), ldb, int(b_mn), out.data_ptr(), m, n, k,
-                 mode, a.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"mxu_matmul kernel launch failed: error {err} (a cudaError_t, "
-                           f"or 9999 / 10000 + CUresult from the tensor-map encoder)")
-    launches += 1
+    _LAUNCH.launch(a.device, a.data_ptr(), lda, b.data_ptr(), ldb, int(b_mn), out.data_ptr(), m,
+                   n, k, mode)
     return out
 
 
@@ -205,3 +189,9 @@ def matmul_nt(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     (ops/library.py): the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors."""
     return torch.ops.yololp_torch.matmul_nt(a, b_t)
+
+
+OPS = (_build.Op("matmul(Tensor a, Tensor b) -> Tensor", "mxu_matmul", _check, matmul_plain,
+                 matmul_cuda, lambda a, b: _empty(a, b.shape[1])),
+       _build.Op("matmul_nt(Tensor a, Tensor b_t) -> Tensor", "mxu_matmul", _check_nt,
+                 matmul_nt_plain, matmul_nt_cuda, lambda a, b_t: _empty(a, b_t.shape[0])))

@@ -4,7 +4,7 @@ PyTorch versions.
 `greedy_nms_mask` calls the custom op `yololp_torch::greedy_nms_mask`
 (ops/library.py), which runs the kernel on a CUDA tensor and the plain
 version on a CPU tensor; on a CUDA tensor it launches the kernel or raises.
-`launches` counts the kernel's launches.
+`_build.launches("greedy_nms")` counts the kernel's launches.
 
 The plain version mirrors the JAX default, the fixpoint of
 yololp_tpu/ops/nms.py:44-79: keep_i = valid_i and no kept j < i with
@@ -34,7 +34,9 @@ from yololp_tpu_torch.ops.geometry import pairwise_iou
 
 MAX_K = 1024  # the kernel's walk holds ceil(K/32) <= 32 words, one a lane
 
-launches = 0
+_LAUNCH = _build.Kernel("greedy_nms", "greedy_nms_mask_launch",
+                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_float])
 
 
 def _suppression_matrix(boxes: torch.Tensor, iou_thres: float) -> torch.Tensor:
@@ -128,27 +130,18 @@ def walk_kept_rows_plain(words: torch.Tensor, valid: torch.Tensor) -> torch.Tens
     return torch.tensor(keep, dtype=torch.bool, device=words.device).view(b, k)
 
 
-_FN = None
-
-
-def _launcher():
-    """greedy_nms_mask_launch of the built library, bound once."""
-    global _FN
-    if _FN is None:
-        fn = _build.load("greedy_nms").greedy_nms_mask_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def _check(boxes: torch.Tensor, scores: torch.Tensor):
+def _check_shapes(boxes: torch.Tensor, scores: torch.Tensor, *_):
+    """boxes (B, K, 4) and scores (B, K) (the op's threshold takes any value)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     if scores.shape != boxes.shape[:2]:
         raise ValueError(f"scores must be (B, K) = {tuple(boxes.shape[:2])}, "
                          f"got {tuple(scores.shape)}")
+
+
+def _check(boxes: torch.Tensor, scores: torch.Tensor):
+    """What the kernel takes."""
+    _check_shapes(boxes, scores)
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"boxes and scores must be float32, got {boxes.dtype}, {scores.dtype}")
     if scores.device != boxes.device:
@@ -166,20 +159,13 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor):
 def greedy_nms_mask_cuda(boxes: torch.Tensor, scores: torch.Tensor,
                          iou_thres: float) -> torch.Tensor:
     """Launch csrc/greedy_nms.cu on CUDA tensors; raise on any refusal."""
-    global launches
     _check(boxes, scores)
     b, k = scores.shape
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    # the launcher sets its device: the guard puts the caller's back after
-    with torch.cuda.device(boxes.device):
-        err = _launcher()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
-                          float(iou_thres), boxes.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"greedy_nms kernel launch failed: cudaError {err}")
-    launches += 1
+    _LAUNCH.launch(boxes.device, boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
+                   float(iou_thres))
     return keep
 
 
@@ -192,3 +178,9 @@ def greedy_nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
     if iters:
         return greedy_nms_mask_bounded(boxes, scores, iou_thres, iters)
     return torch.ops.yololp_torch.greedy_nms_mask(boxes, scores, float(iou_thres))
+
+
+OPS = (_build.Op("greedy_nms_mask(Tensor boxes, Tensor scores, float iou_thres) -> Tensor",
+                 "greedy_nms", _check_shapes, greedy_nms_mask_plain, greedy_nms_mask_cuda,
+                 lambda boxes, scores, iou_thres: scores.new_empty(scores.shape,
+                                                                   dtype=torch.bool)),)

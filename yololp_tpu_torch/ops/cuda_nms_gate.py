@@ -12,7 +12,7 @@ the kernel or raises. From a (B, A, 290) fp32 contiguous decode it returns
     passed (B, A)      bool: the row's gate (the mean, or with `compat_ad4_bug`
                        the reference's sum of ad4 twice and no ad5) >= conf_thres
 
-`launches` counts the kernel's launches.
+`_build.launches("nms_gate")` counts the kernel's launches.
 
 The kernel replaces no Pallas kernel: XLA fused the gate into one pass on
 the TPU, while PyTorch ran it as some 30 kernels, each re-reading the
@@ -36,10 +36,13 @@ COLS = 290  # box 4, obj 1, corners 8, scores 31 + 24 + 6 x 37
 NPRO, NALP, NADS = 31, 24, 37
 REST_COLS = 24
 
-launches = 0
+_LAUNCH = _build.Kernel("nms_gate", "nms_gate_launch",
+                        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 
-def _check(pred: torch.Tensor):
+def _check(pred: torch.Tensor, *_):
+    """pred's shape, dtype and layout (the op's other arguments take any value)."""
     if pred.dim() != 3 or pred.shape[-1] != COLS:
         raise ValueError(f"pred must be a (B, A, {COLS}) decode, got {tuple(pred.shape)}")
     if pred.dtype != torch.float32:
@@ -90,23 +93,7 @@ def nms_gate_plain(pred: torch.Tensor, conf_thres: float, compat_ad4_bug: bool
     return box, gated, rest, passed
 
 
-_FN = None
-
-
-def _launcher():
-    """nms_gate_launch of the built library, bound once."""
-    global _FN
-    if _FN is None:
-        fn = _build.load("nms_gate").nms_gate_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def empty_outputs(pred: torch.Tensor):
+def empty_outputs(pred: torch.Tensor, *_):
     """The op's four outputs, uninitialized, on pred's device."""
     b, a = pred.shape[:2]
     return (pred.new_empty((b, a, 4)), pred.new_empty((b, a)), pred.new_empty((b, a, REST_COLS)),
@@ -115,7 +102,6 @@ def empty_outputs(pred: torch.Tensor):
 
 def nms_gate_cuda(pred: torch.Tensor, conf_thres: float, compat_ad4_bug: bool):
     """Launch csrc/nms_gate.cu on a CUDA tensor; raise on any refusal."""
-    global launches
     _check(pred)
     if pred.device.type != "cuda":
         raise ValueError(f"the kernel takes cuda tensors, got {pred.device}")
@@ -123,15 +109,9 @@ def nms_gate_cuda(pred: torch.Tensor, conf_thres: float, compat_ad4_bug: bool):
     n_rows = pred.shape[0] * pred.shape[1]
     if n_rows == 0:
         return out
-    stream = torch.cuda.current_stream(pred.device).cuda_stream
-    # the launcher sets its device: the guard puts the caller's back after
-    with torch.cuda.device(pred.device):
-        err = _launcher()(pred.data_ptr(), n_rows, float(conf_thres), int(bool(compat_ad4_bug)),
-                          box.data_ptr(), score.data_ptr(), rest.data_ptr(), passed.data_ptr(),
-                          pred.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"nms_gate kernel launch failed: cudaError {err}")
-    launches += 1
+    _LAUNCH.launch(pred.device, pred.data_ptr(), n_rows, float(conf_thres),
+                   int(bool(compat_ad4_bug)), box.data_ptr(), score.data_ptr(), rest.data_ptr(),
+                   passed.data_ptr())
     return out
 
 
@@ -139,3 +119,8 @@ def nms_gate(pred: torch.Tensor, conf_thres: float, compat_ad4_bug: bool = False
     """(box, score, rest, passed) through the op `yololp_torch::nms_gate`:
     the kernel on a CUDA tensor, the plain version on a CPU tensor."""
     return torch.ops.yololp_torch.nms_gate(pred, float(conf_thres), bool(compat_ad4_bug))
+
+
+OPS = (_build.Op("nms_gate(Tensor pred, float conf_thres, bool compat_ad4_bug) -> "
+                 "(Tensor box, Tensor score, Tensor rest, Tensor passed)", "nms_gate", _check,
+                 nms_gate_plain, nms_gate_cuda, empty_outputs, decompose=True),)

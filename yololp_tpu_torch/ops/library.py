@@ -1,5 +1,19 @@
 """The kernels as custom ops of one namespace, `yololp_torch`.
 
+Adding a kernel takes three steps, and these places are all it touches.
+(1) `csrc/X.cu`, which ops/_build.py builds at first use. (2)
+`ops/cuda_X.py`: the plain version, the launcher (a `_build.Kernel` that
+declares the C entry point's types, called through `Kernel.launch`), and
+`OPS`, one `_build.Op` record an op (schema, input check, plain version,
+launcher, fake, and whether export.inductor_program decomposes it); the
+module joins `_MODULES` below, which registers its ops. (3) An entry of
+`OPS` in tests/kernel_cases.py under each op's name (its cases, refusals
+and empty input, which the card test of every op runs:
+tests/test_torch_cuda.py fails to collect without it), and each op's
+schema in deploy/aoti_cpp/ops.cpp, with a C++ launcher there only if the
+C++ runner must launch it. The CPU tests find the rest from these: the
+entry points from `csrc/`, the schemas from the records.
+
 `torch.export` and AOTInductor cannot trace a ctypes call on `data_ptr()`,
 and the plain NMS loops on data, so each kernel is registered as an op that
 the tracer sees as one opaque node:
@@ -13,8 +27,9 @@ the tracer sees as one opaque node:
 
 Each op has three implementations, chosen by the dispatcher from the
 device of its tensors: CUDA is the kernel's launcher (`*_cuda`, which checks
-its inputs and raises on any refusal), CPU is the kernel's plain version (the
-CPU's kernel, not a fallback), and a fake one gives the output's shape, dtype
+its inputs and raises on any refusal), CPU is the record's check and then
+the kernel's plain version (the CPU's kernel, not a fallback), and a fake
+one, the record's check and then its fake, gives the output's shape, dtype
 and strides without reading data. The wrappers the call sites use
 (`cuda_nms.greedy_nms_mask`, `cuda_conv.int8_conv`, `cuda_matmul.matmul`,
 `cuda_matmul.matmul_nt`, `cuda_bias_act.bias_act`, `cuda_nms_gate.nms_gate`)
@@ -34,7 +49,7 @@ layouts the kernels do not take, so a compiled graph must hand them the same
 layouts as eager.
 
 A process without Python (deploy/aoti_cpp/) registers the same schemas from
-C++ in `ops.cpp`; `SCHEMAS` is the text both hold.
+C++ in `ops.cpp`; `SCHEMAS`, in ops.cpp's order, is the text both hold.
 """
 
 from __future__ import annotations
@@ -44,102 +59,31 @@ import torch
 from yololp_tpu_torch.ops import cuda_bias_act, cuda_conv, cuda_matmul, cuda_nms, cuda_nms_gate
 
 NAMESPACE = "yololp_torch"
-SCHEMAS = {
-    "greedy_nms_mask": "greedy_nms_mask(Tensor boxes, Tensor scores, float iou_thres) -> Tensor",
-    "int8_conv": ("int8_conv(Tensor x_q, Tensor w_q, Tensor a, Tensor b, int stride, bool relu, "
-                  "int out_mode) -> Tensor"),
-    "matmul": "matmul(Tensor a, Tensor b) -> Tensor",
-    "matmul_nt": "matmul_nt(Tensor a, Tensor b_t) -> Tensor",
-    "bias_act": "bias_act(Tensor y, Tensor b, int act) -> Tensor",
-    "nms_gate": ("nms_gate(Tensor pred, float conf_thres, bool compat_ad4_bug) -> "
-                 "(Tensor box, Tensor score, Tensor rest, Tensor passed)"),
-}
+_MODULES = (cuda_nms, cuda_conv, cuda_matmul, cuda_bias_act, cuda_nms_gate)
+RECORDS = tuple(op for m in _MODULES for op in m.OPS)
+SCHEMAS = {op.name: op.schema for op in RECORDS}
 
 
-def _nms_cpu(boxes, scores, iou_thres):
-    return cuda_nms.greedy_nms_mask_plain(boxes, scores, iou_thres)
+def _checked(check, impl):
+    def run(*args):
+        check(*args)
+        return impl(*args)
+    return run
 
 
-def _nms_fake(boxes, scores, iou_thres):
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
-        raise ValueError(f"boxes must be (B, K, 4) and scores (B, K), got {tuple(boxes.shape)} "
-                         f"and {tuple(scores.shape)}")
-    return scores.new_empty(scores.shape, dtype=torch.bool)
+def decompositions() -> dict:
+    """{op overload: its plain version} of the ops export.inductor_program
+    writes out for Inductor."""
+    ns = getattr(torch.ops, NAMESPACE)
+    return {getattr(ns, op.name).default: op.plain for op in RECORDS if op.decompose}
 
-
-def _conv_cpu(x_q, w_q, a, b, stride, relu, out_mode):
-    out_dtype = cuda_conv.mode_dtype(out_mode)
-    cuda_conv._check(x_q, w_q, a, b, stride, out_dtype)
-    return cuda_conv.int8_conv_plain(x_q, w_q, a, b, stride, relu, out_dtype)
-
-
-def _conv_cuda(x_q, w_q, a, b, stride, relu, out_mode):
-    return cuda_conv.int8_conv_cuda(x_q, w_q, a, b, stride, relu, cuda_conv.mode_dtype(out_mode))
-
-
-def _conv_fake(x_q, w_q, a, b, stride, relu, out_mode):
-    out_dtype = cuda_conv.mode_dtype(out_mode)
-    cuda_conv._check(x_q, w_q, a, b, stride, out_dtype)
-    n, h, w, _ = x_q.shape
-    o, kh = w_q.shape[:2]
-    return x_q.new_empty((n, cuda_conv.out_size(h, kh, stride), cuda_conv.out_size(w, kh, stride),
-                          o), dtype=out_dtype)
-
-
-def _mm_cpu(a, b):
-    cuda_matmul._check(a, b)
-    return cuda_matmul.matmul_plain(a, b)
-
-
-def _mm_fake(a, b):
-    cuda_matmul._check(a, b)
-    return a.new_empty((a.shape[0], b.shape[1]), dtype=cuda_matmul._MODES[a.dtype][1])
-
-
-def _mm_nt_cpu(a, b_t):
-    cuda_matmul._check_nt(a, b_t)
-    return cuda_matmul.matmul_nt_plain(a, b_t)
-
-
-def _mm_nt_fake(a, b_t):
-    cuda_matmul._check_nt(a, b_t)
-    return a.new_empty((a.shape[0], b_t.shape[0]), dtype=cuda_matmul._MODES[a.dtype][1])
-
-
-def _bias_act_cpu(y, b, act):
-    cuda_bias_act._check(y, b, act)
-    return cuda_bias_act.bias_act_plain(y, b, act)
-
-
-def _bias_act_fake(y, b, act):
-    cuda_bias_act._check(y, b, act)
-    return torch.empty_like(y)
-
-
-def _nms_gate_cpu(pred, conf_thres, compat_ad4_bug):
-    cuda_nms_gate._check(pred)
-    return cuda_nms_gate.nms_gate_plain(pred, conf_thres, compat_ad4_bug)
-
-
-def _nms_gate_fake(pred, conf_thres, compat_ad4_bug):
-    cuda_nms_gate._check(pred)
-    return cuda_nms_gate.empty_outputs(pred)
-
-
-_IMPLS = {
-    "greedy_nms_mask": (_nms_cpu, cuda_nms.greedy_nms_mask_cuda, _nms_fake),
-    "int8_conv": (_conv_cpu, _conv_cuda, _conv_fake),
-    "matmul": (_mm_cpu, cuda_matmul.matmul_cuda, _mm_fake),
-    "matmul_nt": (_mm_nt_cpu, cuda_matmul.matmul_nt_cuda, _mm_nt_fake),
-    "bias_act": (_bias_act_cpu, cuda_bias_act.bias_act_cuda, _bias_act_fake),
-    "nms_gate": (_nms_gate_cpu, cuda_nms_gate.nms_gate_cuda, _nms_gate_fake),
-}
 
 # the registrations live as long as this module (one per process: a second
 # copy of the package in one process raises here)
 _LIB = torch.library.Library(NAMESPACE, "DEF")
-for _name, (_cpu, _cuda, _fake) in _IMPLS.items():
-    _LIB.define(SCHEMAS[_name], tags=(torch.Tag.needs_exact_strides,))
-    _LIB.impl(_name, _cpu, "CPU")
-    _LIB.impl(_name, _cuda, "CUDA")
-    torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)
+for _op in RECORDS:
+    _LIB.define(_op.schema, tags=(torch.Tag.needs_exact_strides,))
+    _LIB.impl(_op.name, _checked(_op.check, _op.plain), "CPU")
+    _LIB.impl(_op.name, _op.cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{_op.name}", _checked(_op.check, _op.fake),
+                                lib=_LIB)
