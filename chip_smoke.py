@@ -237,10 +237,15 @@ plain halves of 26 and 27. Phases, each of which raises on failure:
      forward on the parent's sequence (a no-op hook on each biased conv
      keeps it on cuDNN's bias add), decode bit for bit unless the kernel's
      SiLU rounds apart from PyTorch's on one of those shapes, and 71 / 108
-     launches a forward; per model the kernel's time alone summed over a
-     forward beside the bound (twice the conv outputs' bytes over 3.35
-     TB/s), the plain version's and the unfused sequence's, its device time
-     in a profiled forward, and both forwards' times and profiles;
+     launches a forward (0 / 24 in the residual form); per model and form
+     the kernel's time alone summed over a forward beside the bound (twice
+     the conv outputs' bytes over 3.35 TB/s, three times in the residual
+     form), the plain version's and the unfused sequence's, its device time
+     in a profiled forward, and both forwards' times and profiles; then the
+     residual form at every distinct residual shape of the CSP cells at
+     their own batch and size (yolov6m b128 at 640 with ReLU, yolov6l6 b32
+     at 1280 with SiLU), bit for bit against the plain form's kernel then
+     PyTorch's alpha * x and add (kernel_cases.check_residual);
   27. the NMS gate kernel (csrc/nms_gate.cu) on the served yololps b128
      decode (8400 anchors): every output bit for bit against the plain
      version at thresholds 0.4 and the median score, compat_ad4_bug on and
@@ -270,7 +275,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-from kernel_cases import (CHAINS, EPILOGUE_BATCH, MM_PROBE, chain_boxes,  # noqa: E402
+from kernel_cases import (CHAINS, EPILOGUE_BATCH, MM_PROBE, RESIDUAL_IMG,  # noqa: E402
+                          RESIDUAL_SHAPES, chain_boxes, check_residual,
                           epilogue_operand, eval_on_card, gate_decode, gate_equal,
                           labelled_frames, loader_batches, matmul_operands, own_gts,
                           randomize_parameters, unfused_epilogue)
@@ -3290,13 +3296,19 @@ def phase_bench(results, card, dev, export, weights, cfg):
 # ---------------- phase 26: the deploy convs' epilogue (csrc/bias_act.cu) ----------------
 
 # the benchmark cells' models and the biased convs of one deploy forward of
-# each: the epilogue kernel launches once for each
-EPILOGUE_MODELS = {"yololps": 71, "yolov6m": 108}
+# each: the epilogue kernel launches once for each, in the residual form for
+# each shortcut BottleRep
+EPILOGUE_MODELS = {"yololps": (71, 0), "yolov6m": (108, 24)}
+EPILOGUE_KERNELS = ("bias_act_kernel", "bias_act_residual_kernel")  # by form
+# the batch of each CSP cell, whose residual calls phase 26 checks at their
+# own shapes (kernel_cases.RESIDUAL_SHAPES at RESIDUAL_IMG)
+RESIDUAL_BATCH = {"yolov6m": 128, "yolov6l6": 32}
 class ParentEpilogue:
     """Within the block, every biased conv of `model` carries a no-op forward
     pre-hook, so `layers/blocks.py:conv_act` runs it as itself (cuDNN's conv,
-    then PyTorch's broadcast add of the bias) and the activation after it:
-    the sequence the deploy graph ran before the epilogue kernel."""
+    then PyTorch's broadcast add of the bias) and the activation after it,
+    and a BottleRep's shortcut as PyTorch's alpha * x and add: the sequence
+    the deploy graph ran before the epilogue kernel."""
 
     def __init__(self, model):
         self.model, self.handles = model, []
@@ -3314,14 +3326,15 @@ class ParentEpilogue:
 
 
 def epilogue_calls(inferer, batch):
-    """(C, H, W, act, dtype) of every bias_act call of one `inferer.predict`."""
+    """(C, H, W, act, dtype, form) of every epilogue call of one
+    `inferer.predict`: form 0 bias_act, 1 its residual form."""
     from yololp_tpu_torch.ops import cuda_bias_act
 
     calls, real = [], cuda_bias_act.bias_act
 
-    def spy(y, b, act):
-        calls.append((y.shape[1], y.shape[2], y.shape[3], act, y.dtype))
-        return real(y, b, act)
+    def spy(y, b, act, x=None, alpha=None):
+        calls.append((y.shape[1], y.shape[2], y.shape[3], act, y.dtype, int(x is not None)))
+        return real(y, b, act, x, alpha)
 
     cuda_bias_act.bias_act = spy
     try:
@@ -3349,63 +3362,120 @@ def profiled_device_ms(fn, name, bound_ms, calls=10):
     return None
 
 
+def epilogue_form_times(shapes, gen, dev):
+    """Per form present in `shapes` ({(C, H, W, act, form): calls a
+    forward}): the kernel's time alone at b128 summed over a forward, on
+    the device, the plain version's and the unfused sequence's, the bytes
+    (y read and out written, x read besides in the residual form), the
+    bound, the largest shape; and whether the kernel's SiLU rounds apart
+    from PyTorch's on one of the shapes."""
+    from yololp_tpu_torch.ops import cuda_bias_act
+
+    forms, silu_apart = {}, False
+    for (c, h, w, act, form), n in sorted(shapes.items()):
+        y = epilogue_operand((EPILOGUE_BATCH, c, h, w), gen, dev)
+        b = epilogue_operand((c,), gen, dev)
+        args = (y, b, act)
+        if form:
+            args += (epilogue_operand(y.shape, gen, dev),
+                     (1 + 0.1 * torch.randn(1, generator=gen, device=dev)).to(y.dtype))
+        if act == 2:  # whether the kernel's SiLU rounds apart from PyTorch's here
+            silu_apart |= not torch.equal(cuda_bias_act.bias_act(y, b, act),
+                                          unfused_epilogue(y.clone(), b, act))
+        kernel, plain = cuda_bias_act.bias_act, cuda_bias_act.bias_act_plain
+
+        def library(args=args):
+            out = unfused_epilogue(args[0], args[1], args[2])
+            return out + args[4] * args[3] if len(args) > 3 else out
+
+        size = (2 + form) * y.numel() * y.element_size()
+        t = dict(kernel=float(np.median(cuda_ms(lambda: kernel(*args), 10, 3))),
+                 device=profiled_device_ms(lambda: kernel(*args), EPILOGUE_KERNELS[form],
+                                           size / HBM_BYTES_S * 1e3),
+                 plain=float(np.median(cuda_ms(lambda: plain(*args), 2, 3))),
+                 library=float(np.median(cuda_ms(library, 10, 3))))
+        rec = forms.setdefault(form, dict(calls=0, shapes=0, bytes=0, largest=None,
+                                          **{f"{k}_ms": 0.0 for k in t}))
+        for k, v in t.items():
+            rec[f"{k}_ms"] = None if rec[f"{k}_ms"] is None or v is None else rec[f"{k}_ms"] + n * v
+        rec["calls"] += n
+        rec["shapes"] += 1
+        rec["bytes"] += n * size
+        if rec["largest"] is None or size > rec["largest"]["bytes"]:
+            rec["largest"] = dict(shape=[EPILOGUE_BATCH, c, h, w], act=act, bytes=size,
+                                  bound_ms=size / HBM_BYTES_S * 1e3,
+                                  **{f"{k}_ms": v for k, v in t.items()})
+        del y, b, args
+    for rec in forms.values():
+        rec["bound_ms"] = rec["bytes"] / HBM_BYTES_S * 1e3
+        rec["share_of_bound_alone"] = rec["bound_ms"] / rec["kernel_ms"]
+        rec["share_of_bound_device"] = (rec["bound_ms"] / rec["device_ms"] if rec["device_ms"]
+                                        else None)
+    return forms, silu_apart
+
+
+def residual_at_cell_shapes(gen, dev):
+    """The residual form at every distinct (C, stride, act) of the CSP
+    cells' residual calls, at each cell's own batch and size (yolov6m b128
+    at 640, yolov6l6 b32 at 1280, ReLU and SiLU): kernel_cases.check_residual
+    holds it bit for bit to the plain form's kernel then PyTorch's alpha * x
+    and add. Per model: the shapes, the largest |difference| from that
+    sequence and the largest ulps from the plain version."""
+    from yololp_tpu_torch.ops import cuda_bias_act
+
+    out = {}
+    for model, shapes in RESIDUAL_SHAPES.items():
+        n, img = RESIDUAL_BATCH[model], RESIDUAL_IMG[model]
+        rec = dict(batch=n, img=img, shapes=0, acts=sorted({a for _, _, a in shapes}),
+                   max_abs_diff=0.0, max_plain_ulps=0.0)
+        for c, stride, act in shapes:
+            y = epilogue_operand((n, c, img // stride, img // stride), gen, dev)
+            args = (y, epilogue_operand((c,), gen, dev), act, epilogue_operand(y.shape, gen, dev),
+                    (1 + 0.1 * torch.randn(1, generator=gen, device=dev)).to(y.dtype))
+            got = cuda_bias_act.bias_act(*args)
+            diff, ulps = check_residual(args, got, f"{model} b{n} {tuple(y.shape)} act {act}")
+            rec["shapes"] += 1
+            rec["max_abs_diff"] = max(rec["max_abs_diff"], diff)
+            rec["max_plain_ulps"] = max(rec["max_plain_ulps"], ulps)
+            del y, args, got
+        torch.cuda.empty_cache()
+        out[model] = rec
+    return out
+
+
 def phase_bias_act(results, card, dev):
     """26. The deploy convs' epilogue kernel (csrc/bias_act.cu) at every
-    distinct shape of the yololps and yolov6m forwards at b128 (the card
-    test holds it to its plain version there): the two deploy forwards at
-    b128 against the parent's sequence (decode bit for bit where the
-    kernel's SiLU rounds as PyTorch's) with the launches counted; times
-    alone beside the bound, the plain version and the unfused sequence,
-    summed over a forward; the kernel's device time in a profiled forward."""
+    distinct shape of the yololps and yolov6m forwards at b128 in both of
+    its forms (the card test holds it to its plain version there): the two
+    deploy forwards at b128 against the parent's sequence (decode bit for
+    bit where the kernel's SiLU rounds as PyTorch's) with the launches
+    counted; per form, times alone beside the bound, the plain version and
+    the unfused sequence, summed over a forward; the kernel's device time in
+    a profiled forward. Then the residual form at the CSP cells' own shapes
+    (residual_at_cell_shapes)."""
     from yololp_tpu_torch.core.inferer import Inferer
     from yololp_tpu_torch.layers.fuse import fuse_model
-    from yololp_tpu_torch.ops import cuda_bias_act
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 26)
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     out = {"models": {}}
 
-    for name, want_launches in EPILOGUE_MODELS.items():
+    for name, (want_launches, want_residual) in EPILOGUE_MODELS.items():
         cfg, train = zoo_model(name, SEED + 26)
         weights = fuse_model(train).state_dict()
         del train
         inf = Inferer(".", weights, cfg, img_size=IMG, half=True, iou_thres=0.45,
                       max_det=1000, device=dev)
         calls = epilogue_calls(inf, np.zeros((1, IMG, IMG, 3), np.uint8))
-        if len(calls) != want_launches:
-            raise AssertionError(f"{name}: {len(calls)} bias_act calls a forward, want "
-                                 f"{want_launches}")
+        residual = sum(call[5] for call in calls)
+        if (len(calls), residual) != (want_launches, want_residual):
+            raise AssertionError(f"{name}: {len(calls)} epilogue calls a forward, {residual} "
+                                 f"residual, want {want_launches}, {want_residual}")
         shapes = {}
-        for c, h, w, act, dtype in calls:
-            shapes[(c, h, w, act)] = shapes.get((c, h, w, act), 0) + 1
-        ms = dict(kernel=0.0, device=0.0, plain=0.0, library=0.0)
-        nbytes = 0
-        largest, silu_apart = None, False
-        for (c, h, w, act), n in sorted(shapes.items()):
-            y = epilogue_operand((EPILOGUE_BATCH, c, h, w), gen, dev)
-            b = epilogue_operand((c,), gen, dev)
-            if act == 2:  # whether the kernel's SiLU rounds apart from PyTorch's here
-                silu_apart |= not torch.equal(cuda_bias_act.bias_act(y, b, act),
-                                              unfused_epilogue(y.clone(), b, act))
-            size = 2 * y.numel() * y.element_size()
-            t = dict(kernel=float(np.median(cuda_ms(lambda: cuda_bias_act.bias_act(y, b, act),
-                                                    10, 3))),
-                     device=profiled_device_ms(lambda: cuda_bias_act.bias_act(y, b, act),
-                                               "bias_act_kernel", size / HBM_BYTES_S * 1e3),
-                     plain=float(np.median(cuda_ms(
-                         lambda: cuda_bias_act.bias_act_plain(y, b, act), 2, 3))),
-                     library=float(np.median(cuda_ms(lambda: unfused_epilogue(y, b, act),
-                                                     10, 3))))
-            for k in ms:
-                ms[k] = None if ms[k] is None or t[k] is None else ms[k] + n * t[k]
-            nbytes += n * size
-            if largest is None or size > largest["bytes"]:
-                largest = dict(shape=[EPILOGUE_BATCH, c, h, w], act=act, bytes=size,
-                               bound_ms=size / HBM_BYTES_S * 1e3, **{f"{k}_ms": v
-                                                                     for k, v in t.items()})
-            del y, b
-        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        for c, h, w, act, dtype, form in calls:
+            shapes[(c, h, w, act, form)] = shapes.get((c, h, w, act, form), 0) + 1
+        forms, silu_apart = epilogue_form_times(shapes, gen, dev)
 
         batch = torch.from_numpy(rng.integers(0, 256, (EPILOGUE_BATCH, IMG, IMG, 3), np.uint8))
         batch = batch.pin_memory() if dev.type == "cuda" else batch  # as the benchmark stages
@@ -3429,39 +3499,44 @@ def phase_bias_act(results, card, dev):
         fused_ms = float(np.median(cuda_ms(lambda: inf.predict(batch), 1, 3)))
         prof = profile_batch(lambda: inf.predict(batch), card, label=f"{name} fused epilogue",
                              batch=EPILOGUE_BATCH)
-        in_forward_ms = sum(v for k, v in prof["by_name"].items() if "bias_act_kernel" in k)
+        for form, rec in forms.items():
+            rec["in_forward_ms"] = sum(v for k, v in prof["by_name"].items()
+                                       if EPILOGUE_KERNELS[form] in k)
         elementwise = {k: v for k, v in prof_parent["by_name"].items()
-                       if "elementwise_kernel" in k and "vectorized" not in k}
-        device_ms = ms["device"]
-        rec = dict(launches=launches, shapes=len(shapes), bytes=nbytes, bound_ms=bound_ms,
-                   alone_ms=ms["kernel"], plain_ms=ms["plain"], library_ms=ms["library"],
-                   device_ms=device_ms, in_forward_ms=in_forward_ms,
-                   share_of_bound_alone=bound_ms / ms["kernel"],
-                   share_of_bound_device=bound_ms / device_ms if device_ms else None,
-                   largest=largest, decode_equal=equal, decode_max_diff=err,
-                   silu_rounds_apart=silu_apart,
-                   forward_ms=dict(fused=fused_ms, parent=parent_ms),
-                   parent_elementwise_ms=elementwise)
-        out["models"][name] = rec
+                       if "elementwise_kernel" in k}
+        out["models"][name] = dict(launches=launches, residual_launches=residual,
+                                   forms={EPILOGUE_KERNELS[f]: r for f, r in forms.items()},
+                                   decode_equal=equal, decode_max_diff=err,
+                                   silu_rounds_apart=silu_apart,
+                                   forward_ms=dict(fused=fused_ms, parent=parent_ms),
+                                   parent_elementwise_ms=elementwise)
         print(f"[{card}] phase 26 {name} b{EPILOGUE_BATCH}: {launches} bias_act launches a "
-              f"forward ({len(shapes)} shapes), decode == the parent's sequence: {equal} (max "
-              f"|diff| {err:.3g}; SiLU rounds apart from PyTorch's: {silu_apart}); epilogue "
-              f"bytes {nbytes / 1e9:.3f} GB, bound {bound_ms:.3f} "
-              f"ms; kernel alone {ms['kernel']:.3f} ms ({100 * bound_ms / ms['kernel']:.1f}% "
-              f"of bound), on device "
-              + (f"{device_ms:.3f} ms ({100 * bound_ms / device_ms:.1f}%)" if device_ms
-                 else "not measured (the profiler lost launches)")
-              + f", in the profiled forward {in_forward_ms:.3f} ms"
-              + f"; plain {ms['plain']:.3f} ms; unfused add_ + activation {ms['library']:.3f} "
-              f"ms; forward {fused_ms:.3f} ms (parent's sequence {parent_ms:.3f} ms); the "
-              f"largest shape {largest['shape']} act {largest['act']}: kernel "
-              f"{largest['kernel_ms']:.3f} ms alone, {largest['device_ms']} ms on device, "
-              f"bound {largest['bound_ms']:.3f} ms, plain "
-              f"{largest['plain_ms']:.3f} ms, unfused {largest['library_ms']:.3f} ms; the "
-              f"parent's non-vectorized elementwise kernels: "
+              f"forward ({residual} residual), decode == the parent's sequence: {equal} (max "
+              f"|diff| {err:.3g}; SiLU rounds apart from PyTorch's: {silu_apart}); forward "
+              f"{fused_ms:.3f} ms (parent's sequence {parent_ms:.3f} ms)", flush=True)
+        for form, rec in forms.items():
+            big = rec["largest"]
+            print(f"[{card}] phase 26 {name} {EPILOGUE_KERNELS[form]}: {rec['calls']} calls "
+                  f"({rec['shapes']} shapes), {rec['bytes'] / 1e9:.3f} GB, bound "
+                  f"{rec['bound_ms']:.3f} ms; kernel alone {rec['kernel_ms']:.3f} ms "
+                  f"({100 * rec['share_of_bound_alone']:.1f}% of bound), on device "
+                  + (f"{rec['device_ms']:.3f} ms ({100 * rec['share_of_bound_device']:.1f}%)"
+                     if rec["device_ms"] else "not measured (the profiler lost launches)")
+                  + f", in the profiled forward {rec['in_forward_ms']:.3f} ms; plain "
+                  f"{rec['plain_ms']:.3f} ms; unfused sequence {rec['library_ms']:.3f} ms; the "
+                  f"largest shape {big['shape']} act {big['act']}: kernel {big['kernel_ms']:.3f} "
+                  f"ms alone, {big['device_ms']} ms on device, bound {big['bound_ms']:.3f} ms",
+                  flush=True)
+        print(f"[{card}] phase 26 {name}: the parent's elementwise kernels: "
               + ", ".join(f"{v:.3f} ms {k[:60]}" for k, v in elementwise.items()), flush=True)
         del fused, inf, weights
 
+    out["residual_check"] = residual_at_cell_shapes(gen, dev)
+    for model, rec in out["residual_check"].items():
+        print(f"[{card}] phase 26 residual form at {model}'s b{rec['batch']} {rec['img']}: "
+              f"{rec['shapes']} shapes, acts {rec['acts']}, bit for bit with the plain form's "
+              f"kernel then alpha * x and the add (max |diff| {rec['max_abs_diff']}), "
+              f"{rec['max_plain_ulps']:.3g} ulps from the plain version at most", flush=True)
     out["seconds"] = time.perf_counter() - t_phase
     results["bias_act"] = out
     print(f"[{card}] phase 26 in {out['seconds']:.0f} s", flush=True)
@@ -3767,6 +3842,7 @@ def main():
 
     # 26. the deploy convs' epilogue kernel at the benchmark cells' shapes
     epilogue = phase_bias_act(results, card, dev)
+    plain_form = epilogue["models"]["yololps"]["forms"]["bias_act_kernel"]
 
     # 27. the NMS gate kernel at the benchmark cells' shapes
     gate = phase_nms_gate(results, card, dev)
@@ -3819,12 +3895,15 @@ def main():
                 "max_abs_err": None,
                 "silu_rounds_apart": {k: v["silu_rounds_apart"]
                                       for k, v in epilogue["models"].items()},
-                "ms": epilogue["models"]["yololps"]["alone_ms"],
-                "device_ms": epilogue["models"]["yololps"]["device_ms"],
-                "plain_ms": epilogue["models"]["yololps"]["plain_ms"],
-                "bound_ms": epilogue["models"]["yololps"]["bound_ms"], "bound_by": "bytes",
-                "library_ms": epilogue["models"]["yololps"]["library_ms"],
+                "ms": plain_form["kernel_ms"], "device_ms": plain_form["device_ms"],
+                "plain_ms": plain_form["plain_ms"], "bound_ms": plain_form["bound_ms"],
+                "bound_by": "bytes", "library_ms": plain_form["library_ms"],
                 "matches_plain": True,
+                "residual_form": dict(
+                    epilogue["models"]["yolov6m"]["forms"]["bias_act_residual_kernel"],
+                    checked_at_cell_shapes=epilogue["residual_check"],
+                    max_abs_diff=max(r["max_abs_diff"]
+                                     for r in epilogue["residual_check"].values())),
                 "export_launches": {k: export[k]["launches_pt2"][2] for k in ("bf16", "int8")},
                 "aoti_launches": {k: export[k]["launches_aoti"][2] for k in ("bf16", "int8")},
                 "runner_launches": {k: export[k]["runner"]["launches_per_batch"]["bias_act"]

@@ -275,6 +275,16 @@ EPILOGUE_SHAPES = {
                 (277, 32, 0), (384, 16, 1), (384, 32, 1), (384, 32, 2), (512, 32, 1),
                 (768, 32, 1)]}
 EPILOGUE_IMG, EPILOGUE_BATCH = 640, 128
+# the distinct (C, stride, act) of the residual form's calls (a shortcut
+# BottleRep's second conv) of one deploy forward: 7 of yolov6m's 24 at 640,
+# 8 of yolov6l6's 60 at 1280 (tests/test_torch_bias_act.py holds them to the
+# models)
+RESIDUAL_SHAPES = {
+    "yolov6m": [(64, 4, 1), (64, 8, 1), (128, 8, 1), (128, 16, 1), (256, 16, 1), (256, 32, 1),
+                (512, 32, 1)],
+    "yolov6l6": [(64, 4, 2), (64, 8, 2), (128, 8, 2), (128, 16, 2), (256, 16, 2), (256, 32, 2),
+                 (384, 32, 2), (512, 64, 2)]}
+RESIDUAL_IMG = {"yolov6m": 640, "yolov6l6": 1280}
 # SiLU's allowance against PyTorch's silu and the plain version, in ulps of
 # the dtype: the kernel uses the same formula, v / (1 + expf(-v)) in fp32,
 # but PyTorch's build and this one's (-fmad=false) may compile expf's
@@ -330,6 +340,44 @@ def _epilogue_cases():
     return cases
 
 
+def _residual_case(layout, c, h, w, n, act, dtype):
+    """One case of the residual form: _epilogue_case's y and b, x as y
+    (laid out alike, an offset view where y is one), alpha drawn as the
+    seeded weights draw it, N(1, 0.1)."""
+    def make(dev):
+        y, b, _ = _epilogue_case(layout, c, h, w, n, act, dtype)(dev)
+        x = torch.empty_like(y) if layout != "offset" else (
+            torch.empty(3 + y.numel(), dtype=dtype, device=dev)[3:].view(n, h, w, c)
+            .permute(0, 3, 1, 2))
+        gen = torch.Generator(device=dev).manual_seed(27)
+        x.copy_(epilogue_operand(y.shape, gen, dev, dtype))
+        alpha = (1 + 0.1 * torch.randn(1, generator=gen, device=dev)).to(dtype)
+        return y, b, act, x, alpha
+    return make
+
+
+def _residual_cases():
+    """The layouts and dtypes beside the main path's (fp32, NCHW, a count
+    that is not a multiple of the vector, bases that are not 16-byte aligned:
+    the scalar kernel), then every distinct shape of RESIDUAL_SHAPES at b1,
+    bf16."""
+    cases = {}
+    for aname, act in _ACTS.items():
+        for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            for label, layout, shape in (("nchw", "nchw", (8, 64, 40, 40)),
+                                         ("ragged", "nhwc", (1, 277, 3, 5)),
+                                         ("offset", "offset", (2, 12, 5, 7))):
+                n, c, h, w = shape
+                cases[f"residual_{label}_{dname}_{aname}"] = _residual_case(layout, c, h, w, n,
+                                                                             act, dtype)
+    for model, shapes in RESIDUAL_SHAPES.items():
+        for c, stride, act in shapes:
+            s = RESIDUAL_IMG[model] // stride
+            cases[f"residual_{model}_C{c}_{s}x{s}_{[*_ACTS][act]}"] = _residual_case(
+                "nhwc", c, s, s, 1, act, torch.bfloat16)
+    return cases
+
+
 def unfused_epilogue(y, b, act):
     """PyTorch's unfused epilogue on a conv output `y`, in place as the conv
     leaves it to PyTorch: `add_` of the broadcast bias, then the activation."""
@@ -369,6 +417,44 @@ def check_epilogue(args, got, what):
                                  f"{name} version, up to {u:.3g} ulps")
         ulps, differ = max(ulps, u), max(differ, n)
     return ulps, differ
+
+
+def check_residual(args, got, what):
+    """The residual form's `got` = act(y + b) + alpha * x: bit for bit with
+    the sequence the card ran before it (the plain form's kernel, then
+    PyTorch's alpha * x and add, a launch of its own here), and with the
+    plain version wherever the epilogues agree (everywhere for none and
+    ReLU; SiLU's epilogue within EPILOGUE_SILU_ULPS, check_epilogue's
+    allowance, whose ulps grow in ulps of a sum that cancels); y's strides
+    kept. Returns the largest |got - unfused| (0 where it passes) and the
+    largest ulps of got from the plain version over every element."""
+    from yololp_tpu_torch.ops.cuda_bias_act import bias_act, bias_act_plain
+
+    y, b, act, x, alpha = args
+    if got.stride() != y.stride():
+        raise AssertionError(f"bias_act residual {what}: strides {got.stride()}, y's {y.stride()}")
+    a, a_plain = bias_act(y, b, act), bias_act_plain(y, b, act)
+    unfused = a + alpha * x
+    diff = float((got.float() - unfused.float()).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, unfused):
+        raise AssertionError(f"bias_act residual {what}: {int((got != unfused).sum())} elements "
+                             f"differ from the plain form's kernel, then alpha * x and the add, by "
+                             f"up to {diff}")
+    same = a == a_plain
+    if (act != 2 and not bool(same.all())) or max_ulps(a, a_plain) > EPILOGUE_SILU_ULPS[y.dtype]:
+        raise AssertionError(f"bias_act residual {what} act {act}: the epilogue differs from its "
+                             f"plain version at {int((~same).sum())} elements")
+    plain = bias_act_plain(*args)
+    if not torch.equal(got[same], plain[same]):
+        raise AssertionError(f"bias_act residual {what}: {int((got[same] != plain[same]).sum())} "
+                             "elements differ from the plain version where the epilogues agree")
+    return diff, max_ulps(got, plain)
+
+
+def check_bias_act(args, got, what):
+    """check_epilogue, or check_residual where the case hands in x and
+    alpha."""
+    return (check_residual if len(args) > 3 else check_epilogue)(args, got, what)
 
 
 # ---------------- nms_gate (csrc/nms_gate.cu) ----------------
@@ -533,14 +619,28 @@ OPS = {
           ValueError, "16 bytes")],
         lambda dev: (_z(dev, 0, 32, dtype=torch.int8), _z(dev, 16, 32, dtype=torch.int8))),
     "bias_act": OpCases(
-        _epilogue_cases,
-        check_epilogue,
+        lambda: _epilogue_cases() | _residual_cases(),
+        check_bias_act,
         [(lambda dev: (_z(dev, 2, 8, 4, 4, dtype=torch.float16),
                        _z(dev, 8, dtype=torch.float16), 1), TypeError, "float32"),
          (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 4), 1), ValueError, "channels"),
          (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 8), 3), ValueError, "act"),
          (lambda dev: (_z(dev, 2, 4, 8, 4).transpose(1, 2), _z(dev, 8), 1), ValueError,
-          "channels_last or contiguous")],
+          "channels_last or contiguous"),
+         # the residual form's
+         (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 8), 1, _z(dev, 2, 8, 4, 2), _z(dev, 1)),
+          ValueError, "shape"),
+         (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 8), 1, _z(dev, 2, 8, 4, 4),
+                       _z(dev, 1, dtype=torch.bfloat16)), TypeError, "alpha"),
+         (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 8), 1,
+                       _z(dev, 2, 8, 4, 4).contiguous(memory_format=torch.channels_last),
+                       _z(dev, 1)), ValueError, "laid out"),
+         (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 8), 1, _z(dev, 2, 8, 4, 4), _z(dev, 2)),
+          ValueError, "one element"),
+         (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 8), 1, _z(dev, 2, 8, 4, 4), _z("cpu", 1)),
+          ValueError, "alpha on cpu"),
+         (lambda dev: (_z(dev, 2, 8, 4, 4), _z(dev, 8), 1, _z(dev, 2, 8, 4, 4), None),
+          ValueError, "together")],
         lambda dev: (_z(dev, 0, 8, 4, 4), _z(dev, 8), 1)),
     "nms_gate": OpCases(
         _gate_cases,

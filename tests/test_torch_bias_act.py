@@ -16,7 +16,9 @@ contiguous NCHW. Besides: the fake's shape, dtype and strides, opcheck, an
 exported deploy conv holds one op (which the AOTInductor program decomposes
 into its plain arithmetic), the train graph keeps its gradient, the
 counters a deploy model records (71 biased convs in yololps, 108 in
-yolov6m, all fused) and the benchmark's reader of them."""
+yolov6m, all fused) and the benchmark's reader of them. The residual
+form, `bias_act(y, b, act, x, alpha)`, is held to the unfused sequence
+after the epilogue, PyTorch's alpha * x and add, bit for bit."""
 
 import sys
 from pathlib import Path
@@ -39,7 +41,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from benchmark import spec as S  # noqa: E402
-from kernel_cases import EPILOGUE_SHAPES  # noqa: E402
+from kernel_cases import EPILOGUE_SHAPES, RESIDUAL_SHAPES  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -209,23 +211,32 @@ def test_a_hooked_conv_sees_its_own_call():
     assert P.counters() == {"conv.biased": 1}
 
 
-@pytest.mark.parametrize("name, biased", [("yololps", 71), ("yolov6m", 108)])
-def test_a_deploy_forward_counts_every_biased_conv_fused(name, biased, monkeypatch):
+@pytest.mark.parametrize("name, biased, residuals", [("yololps", 71, 0), ("yolov6m", 108, 24)])
+def test_a_deploy_forward_counts_every_biased_conv_fused(name, biased, residuals, monkeypatch):
     """The counters of one deploy forward; its epilogues' distinct (C, stride,
-    act) are the card cases' (tests/kernel_cases.py)."""
+    act) are the card cases' (tests/kernel_cases.py). yolov6m's 24 shortcut
+    BottleReps take the residual form, yololps has none."""
     inferer = Inferer(None, None, name, img_size=64, half=False, conf_thres=0.0, max_det=4,
                       device="cpu")
     batch = np.random.default_rng(0).integers(0, 255, (1, 64, 64, 3), np.uint8)
-    calls, real = [], cuda_bias_act.bias_act
-    monkeypatch.setattr(cuda_bias_act, "bias_act",
-                        lambda y, b, act: calls.append((y.shape[1], 64 // y.shape[2], act))
-                        or real(y, b, act))
+    calls = {"plain": [], "residual": []}  # the op's calls by form: without and with x
+    real = cuda_bias_act.bias_act
+    monkeypatch.setattr(cuda_bias_act, "bias_act", lambda y, b, act, x=None, alpha=None:
+                        calls["plain" if x is None else "residual"].append(
+                            (y.shape[1], 64 // y.shape[2], act)) or real(y, b, act, x, alpha))
     with profile(activities=[ProfilerActivity.CPU]):
         inferer.predict(batch)
-    assert P.counters() == {"conv.biased": biased, "conv.epilogue_fused": biased,
-                            "decode.anchors": 8 * 8 + 4 * 4 + 2 * 2}
-    assert len(calls) == biased and sorted(set(calls)) == EPILOGUE_SHAPES[name]
+    want = {"conv.biased": biased, "conv.epilogue_fused": biased,
+            "decode.anchors": 8 * 8 + 4 * 4 + 2 * 2}
+    if residuals:
+        want |= {"block.residual": residuals, "block.residual_fused": residuals}
+    assert P.counters() == want
+    every = calls["plain"] + calls["residual"]
+    assert len(calls["residual"]) == residuals and len(every) == biased
+    assert sorted(set(every)) == EPILOGUE_SHAPES[name]
+    assert sorted(set(calls["residual"])) == RESIDUAL_SHAPES.get(name, [])
     assert S.reader("conv_epilogue_fused.serve")({}) == 100.0
+    assert S.reader("residual_fused.serve")({}) == (100.0 if residuals else None)
 
 
 def test_the_reader_reads_a_share_and_nothing_from_an_empty_store():
@@ -243,3 +254,216 @@ def test_the_reader_reads_a_share_and_nothing_from_an_empty_store():
         "program_counter", "model step", "images_per_s", "%")
     assert m["workloads"] == ["yololps-b128-dense", "yolov6m-b128-dense",
                               "yolov6l6-b32-1280-dense"]
+
+
+# ---------------- the residual form, `bias_act(y, b, act, x, alpha)` ----------------
+
+
+def residual_operands(n, c, h, w, dtype, layout, seed):
+    """(y, b, x, alpha): conv_output's y and b, a block input x laid out as
+    y (an offset view where y is one) and alpha drawn as the seeded weights
+    draw it, N(1, 0.1)."""
+    _, _, b, y = conv_output(n, c, h, w, dtype, layout, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = (torch.empty_like(y) if layout != "offset"
+         else torch.empty(3 + y.numel(), dtype=dtype)[3:].view(n, h, w, c).permute(0, 3, 1, 2))
+    x.copy_(torch.randn(n, c, h, w, generator=g))
+    alpha = (1 + 0.1 * torch.randn(1, generator=g)).to(dtype)
+    assert alpha.item() != 1
+    return y, b, x, alpha
+
+
+RESIDUAL_LAYOUTS = {"channels_last": (2, 16, 8, 4), "ragged": (1, 277, 3, 5),
+                    "offset": (2, 12, 5, 3), "nchw": (2, 16, 4, 6)}
+
+
+@pytest.mark.parametrize("layout", list(RESIDUAL_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", [NONE, RELU, SILU], ids=["none", "relu", "silu"])
+def test_residual_op_is_the_unfused_sequence(act, dtype, layout):
+    """The op is the epilogue's plain version, then alpha * x and the add in
+    y's dtype, bit for bit; with none and ReLU, PyTorch's unfused add_ and
+    activation too (SiLU's own ulps, test_op_is_the_unfused_sequence, grow
+    in ulps of a sum that cancels)."""
+    y, b, x, alpha = residual_operands(*RESIDUAL_LAYOUTS[layout], dtype, layout, seed=act + 5)
+    got = cuda_bias_act.bias_act(y, b, act, x, alpha)
+    assert got.dtype == dtype and got.shape == y.shape and got.stride() == y.stride()
+    assert torch.equal(got, cuda_bias_act.bias_act_plain(y, b, act) + alpha * x)
+    if act != SILU:
+        assert torch.equal(got, ACTS[act](y.clone().add_(b.reshape(1, -1, 1, 1))) + alpha * x)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_residual_fake_and_opcheck(layout):
+    y, b, x, alpha = residual_operands(2, 12, 4, 5, torch.float32, layout, seed=1)
+    result = torch.library.opcheck(torch.ops.yololp_torch.bias_act.default,
+                                   (y, b, SILU, x, alpha))
+    assert set(result.values()) == {"SUCCESS"}, result
+    with FakeTensorMode() as mode:
+        fy, fb, fx, fa = (mode.from_tensor(t) for t in (y, b, x, alpha))
+        out = torch.ops.yololp_torch.bias_act(fy, fb, RELU, fx, fa)
+    assert out.shape == y.shape and out.dtype == y.dtype and out.stride() == y.stride()
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(x=torch.zeros(2, 4, 3, 2)), "shape"),
+    (dict(x=torch.zeros(2, 4, 3, 3, dtype=torch.bfloat16)), "x and alpha must"),
+    (dict(alpha=torch.ones(1, dtype=torch.float64)), "x and alpha must"),
+    (dict(x=torch.zeros(2, 4, 3, 3).contiguous(memory_format=torch.channels_last)), "laid out"),
+    (dict(alpha=torch.ones(2)), "one element"),
+    (dict(alpha=torch.ones(1, device="meta")), "alpha on meta"),
+    (dict(b=torch.zeros(5)), "channels"),  # the epilogue's own checks stand
+    (dict(alpha=None), "together"),
+], ids=["shape", "x_dtype", "alpha_dtype", "layout", "alpha_size", "device", "bias",
+        "x_alone"])
+def test_residual_refusals_raise(bad, match):
+    args = dict(y=torch.zeros(2, 4, 3, 3), b=torch.zeros(4), act=RELU, x=torch.zeros(2, 4, 3, 3),
+                alpha=torch.ones(1)) | bad
+    with pytest.raises((ValueError, TypeError), match=match):
+        cuda_bias_act.bias_act(*args.values())
+
+
+def randomized_bottlerep(block, weight, dtype, seed=3):
+    """A deploy BottleRep of 16 channels with N(0, 0.3) weights and biases
+    and alpha from N(1, 0.1), in `dtype`."""
+    torch.manual_seed(seed)
+    m = blocks.BottleRep(16, 16, block=block, weight=weight, deploy=True).eval()
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            p.copy_(1 + 0.1 * torch.randn_like(p) if name == "alpha" else 0.3 * torch.randn_like(p))
+    return m.to(dtype)
+
+
+@pytest.fixture
+def residual_calls(monkeypatch):
+    """The act number of each call of the op's residual form from
+    layers/blocks.py."""
+    seen, real = [], cuda_bias_act.bias_act
+    monkeypatch.setattr(cuda_bias_act, "bias_act", lambda y, b, act, x=None, alpha=None:
+                        (x is not None and seen.append(act)) or real(y, b, act, x, alpha))
+    return seen
+
+
+@pytest.mark.parametrize("weight", [True, False], ids=["alpha", "no_alpha"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("block", [blocks.RepVGGBlock, blocks.ConvWrapper],
+                         ids=["repvgg", "conv_silu"])
+def test_a_deploy_bottlerep_takes_the_residual_form_bit_for_bit(block, dtype, weight,
+                                                                 residual_calls):
+    """Its second conv's epilogue adds the shortcut (alpha None reads as 1):
+    equal to the unfused forward, conv2's output plus alpha * x."""
+    m = randomized_bottlerep(block, weight, dtype)
+    x = torch.randn(2, 16, 6, 5).to(dtype).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        y = m.conv2(m.conv1(x))
+        want = y + (m.alpha * x if weight else x)
+        got = m(x)
+    assert residual_calls == [RELU if block is blocks.RepVGGBlock else SILU]
+    assert torch.equal(got, want) and got.stride() == want.stride()
+
+
+def test_the_residual_takes_todays_path_where_the_op_does_not_take_it(residual_calls):
+    """The train graph, a hooked second block, autocast, and a conv output
+    laid out otherwise than the shortcut run conv2, then alpha * x and the
+    add, as before the op; a hook fires."""
+    x = torch.randn(1, 16, 4, 4).contiguous(memory_format=torch.channels_last)
+    train = blocks.BottleRep(16, 16, weight=True).eval()
+    m = randomized_bottlerep(blocks.ConvWrapper, True, torch.float32)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
+        assert torch.equal(train(x), train.conv2(train.conv1(x)) + train.alpha * x)
+        fired = []
+        h = m.conv2.register_forward_hook(lambda *a: fired.append(1))
+        assert torch.equal(m(x), m.conv2(m.conv1(x)) + m.alpha * x) and len(fired) == 2
+        h.remove()
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            assert torch.equal(m(x), m.conv2(m.conv1(x)) + m.alpha * x)
+        conv, act = m.conv2.deploy_conv()
+        nchw = x.contiguous()
+        got = blocks.conv_act(conv, x, act, residual=nchw, alpha=m.alpha)
+        assert torch.equal(got, m.conv2(x) + m.alpha * nchw)
+    assert residual_calls == []
+    assert P.counters()["block.residual"] == 3 and "block.residual_fused" not in P.counters()
+
+
+@pytest.mark.parametrize("kind, err, match", [
+    ("layout", ValueError, "laid out"),
+    ("dtype", TypeError, "x and alpha must"),
+])
+def test_a_card_residual_always_takes_the_op(kind, err, match):
+    """On the card no shortcut falls back to the unfused sequence: a conv
+    output and shortcut the kernel does not take reach the op and raise (fake
+    CUDA tensors here, which reach the op's fake; it checks as the kernel's
+    wrapper does); a matching pair takes the op."""
+    conv = torch.nn.Conv2d(16, 16, 3, padding=1, device="meta")
+    with FakeTensorMode(), torch.no_grad():
+        for name, p in conv.named_parameters():
+            setattr(conv, name, torch.nn.Parameter(torch.empty(p.shape, device="cuda",
+                                                               dtype=torch.bfloat16)))
+        x = torch.empty(2, 16, 6, 5, device="cuda", dtype=torch.bfloat16,
+                        memory_format=torch.channels_last)
+        alpha = torch.empty(1, device="cuda", dtype=torch.bfloat16)
+        y = conv._conv_forward(x, conv.weight, None)  # laid out as the fake conv chooses
+        out = blocks.conv_act(conv, x, SILU, residual=torch.empty_like(y), alpha=alpha)
+        assert out.device.type == "cuda" and out.stride() == y.stride()
+        flip = (torch.contiguous_format if y.is_contiguous(memory_format=torch.channels_last)
+                else torch.channels_last)
+        other = (torch.empty_like(y, memory_format=flip) if kind == "layout"
+                 else torch.empty_like(y, dtype=torch.float32))
+        with pytest.raises(err, match=match):
+            blocks.conv_act(conv, x, SILU, residual=other, alpha=alpha)
+
+
+@pytest.mark.parametrize("name, img", [("yolov6m", 640), ("yolov6l6", 1280)])
+def test_the_residual_shapes_are_the_models(name, img, monkeypatch):
+    """A deploy forward on the meta device at the cell's size: 24 residual
+    calls in yolov6m and 60 in yolov6l6, of the card cases' distinct (C,
+    stride, act) (tests/kernel_cases.py)."""
+    from yololp_tpu_torch.models.yolo import Model
+    from yololp_tpu_torch.utils.config import Config
+
+    calls, real = [], cuda_bias_act.bias_act
+    monkeypatch.setattr(cuda_bias_act, "bias_act", lambda y, b, act, x=None, alpha=None:
+                        (x is not None and calls.append((y.shape[1], img // y.shape[2], act)))
+                        or real(y, b, act, x, alpha))
+    with torch.device("meta"):
+        model = Model(Config.named(name), deploy=True).eval().to(torch.bfloat16)
+    x = torch.empty(1, 3, img, img, device="meta", dtype=torch.bfloat16)
+    with torch.no_grad():
+        model(x.contiguous(memory_format=torch.channels_last))
+    assert len(calls) == {"yolov6m": 24, "yolov6l6": 60}[name]
+    assert sorted(set(calls)) == RESIDUAL_SHAPES[name]
+
+
+def test_export_of_a_deploy_bottlerep_holds_the_residual_op_and_decomposes_it():
+    """The exported graph holds two bias_act nodes, the second with the
+    shortcut's x and alpha, and no add or mul; export.inductor_program
+    writes both as their plain arithmetic, which gives the same bits."""
+    m = randomized_bottlerep(blocks.ConvWrapper, True, torch.bfloat16)
+    x = torch.randn(2, 16, 6, 6).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        program = torch.export.export(m, (x,))
+        targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+        calls = [n for n in program.graph.nodes if str(n.target) == "yololp_torch.bias_act.default"]
+        assert [len(n.args) > 3 and n.args[3] is not None for n in calls] == [False, True]
+        assert not [t for t in targets if "add" in t or "mul" in t]
+        decomposed = inductor_program(program)
+        targets = [str(n.target) for n in decomposed.graph.nodes if n.op == "call_function"]
+        assert not [t for t in targets if "yololp_torch" in t]
+        assert torch.equal(decomposed.module()(x), program.module()(x))
+        assert torch.equal(program.module()(x), m(x))
+
+
+def test_the_residual_reader_reads_a_share_and_nothing_from_an_empty_store():
+    assert S.reader("residual_fused.serve")({}) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        P.count("block.residual", 4)
+        P.count("block.residual_fused", 3)
+    assert S.reader("residual_fused.serve")({}) == 75.0
+    P.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        P.count("block.residual", 2)  # a train-graph forward: none fused
+    assert S.reader("residual_fused.serve")({}) == 0.0
+    m = {x["name"]: x for x in S.load(ROOT)["per_layer"]}["residual_fused.serve"]
+    assert (m["source"], m["layer"], m["moves"], m["unit"]) == (
+        "program_counter", "model step", "images_per_s", "%")
+    assert m["workloads"] == ["yolov6m-b128-dense", "yolov6l6-b32-1280-dense"]

@@ -12,10 +12,14 @@ on every case of tests/kernel_cases.py through `torch.ops.yololp_torch`
 keep-mask equal; int8_conv, equal to the bit; matmul and matmul_nt, int8
 equal and bf16 within 2 K 2**-24 (|a| @ |b|) elementwise; bias_act, none
 and ReLU bit for bit and SiLU within 1 bf16 / 2 fp32 ulps of the plain
-version and of PyTorch's unfused `add_` + activation; nms_gate, every
+version and of PyTorch's unfused `add_` + activation, and its residual
+form bit for bit with the plain form's kernel then PyTorch's alpha * x and
+add, and with its plain version where the epilogues agree; nms_gate, every
 output bit for bit (NaN too). Each op refuses what its kernel does not
 take, returns an empty output without a launch, and, on a second card,
-leaves the caller's current device as it was. Then chip_smoke.py's phase
+leaves the caller's current device as it was. The residual form's
+decomposition, as AOTInductor compiles it, equals the kernel bit for bit.
+Then chip_smoke.py's phase
 12 at a small size (the evaler on the card against the plain CPU NMS on
 its decode), the loss on the card against the CPU, and select_candidates,
 which launches the gate once and raises on a decode it does not take.
@@ -96,6 +100,77 @@ def test_kernels_on_a_second_card_leave_the_callers_device(op, cuda_device):
         assert torch.cuda.current_device() == 0
     OPS[op].check(args, got, f"{case} on cuda:1")
     torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["repvgg", "conv_silu"])
+def test_the_compiled_residual_form_equals_the_kernel(block, cuda_device, tmp_path):
+    """export.compile_aoti compiles a deploy BottleRep, whose second conv's
+    epilogue is the residual form, from the ops' plain versions
+    (export.inductor_program). The package's output equals eager's, whose
+    epilogues are the kernels, bit for bit: a rounding that Inductor drops
+    (alpha * x's, the sum's or the epilogue's) moves many elements. The
+    BottleRep follows a deploy block of its kind, as in every model: its
+    shortcut is then a conv's epilogue output, which torch.export traces
+    laid out as the conv outputs beside it (NCHW in torch 2.11's trace,
+    whatever eager's cuDNN gives), where the graph's own channels_last
+    input would not be, and the op would refuse it."""
+    from yololp_tpu_torch.export.export import compile_aoti
+    from yololp_tpu_torch.layers import blocks
+
+    kind = {"repvgg": blocks.RepVGGBlock, "conv_silu": blocks.ConvWrapper}[block]
+    gen = torch.Generator().manual_seed(29)
+    m = torch.nn.Sequential(kind(64, 64, deploy=True),
+                            blocks.BottleRep(64, 64, block=kind, weight=True, deploy=True)).eval()
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen) if name.endswith("alpha")
+                    else 0.05 * torch.randn(p.shape, generator=gen))
+    m = m.to(cuda_device, torch.bfloat16).to(memory_format=torch.channels_last)
+    x = (2 * torch.randn(8, 64, 80, 80, generator=gen)).to(cuda_device, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    before = _build.launches("bias_act")
+    with torch.no_grad():
+        want = m(x)
+        program = torch.export.export(m, (x,))
+    assert _build.launches("bias_act") == before + 3  # two plain forms, then the residual form
+    nodes = [n for n in program.graph.nodes if str(n.target) == "yololp_torch.bias_act.default"]
+    assert [len(n.args) > 3 and n.args[3] is not None for n in nodes] == [False, False, True]
+    path, _ = compile_aoti(program, str(tmp_path / "bottlerep.pt2"))
+    package = torch._inductor.aoti_load_package(path)
+    before = _build.launches("bias_act")
+    with torch.no_grad():
+        got = package(x)
+    torch.cuda.synchronize()
+    got = got[0] if isinstance(got, (tuple, list)) else got
+    assert _build.launches("bias_act") == before  # Inductor's own passes, no kernel of ours
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {got.numel()} elements differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, residuals", [("yolov6m", 24), ("yolov6l6", 60)])
+def test_a_csp_model_exports_on_the_card_with_its_residual_epilogues(name, residuals,
+                                                                      cuda_device):
+    """export.export_program of a CSP deploy model (Inferer.model, seeded
+    weights) on the card at 128 px: every shortcut BottleRep's epilogue is
+    a bias_act node with x and alpha, and the exported program's decode
+    equals eager's bit for bit."""
+    from yololp_tpu_torch.core.inferer import Inferer
+    from yololp_tpu_torch.export.export import build_export_fn, export_program
+
+    torch.manual_seed(0)
+    inf = Inferer(None, None, name, img_size=128, half=True, device=cuda_device)
+    module = build_export_fn(inf.model, inf.variables, end2end=False)
+    program = export_program(module, 2, 128, cuda_device)
+    nodes = [n for n in program.graph.nodes if str(n.target) == "yololp_torch.bias_act.default"]
+    assert sum(len(n.args) > 3 and n.args[3] is not None for n in nodes) == residuals
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    images = torch.randint(0, 256, (2, 128, 128, 3), generator=gen, device=cuda_device,
+                           dtype=torch.uint8)
+    with torch.no_grad():
+        want, got = module(images), program.module()(images)
+    for w, g in zip(*((want, got) if isinstance(want, tuple) else ((want,), (got,)))):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -397,3 +397,26 @@ def test_fps_is_images_over_seconds():
     assert fps.accumulate() == pytest.approx(8 / 0.6)  # not the mean of 8 and 40
     fps.update(0.2, 2)  # the oldest batch leaves
     assert fps.accumulate() == pytest.approx(6 / 0.3)
+
+
+@pytest.mark.parametrize("deploy", [False, True], ids=["train_graph", "deploy"])
+def test_the_residual_counters_count_each_shortcut_bottlerep(deploy):
+    """A CSP model (yolov6m: BepC3 blocks of BottleReps) counts
+    `block.residual` once for each shortcut BottleRep a forward runs, and
+    `block.residual_fused` as often on the deploy graph's fused path; the
+    train graph fuses none."""
+    from yololp_tpu_torch.layers.blocks import BottleRep
+    from yololp_tpu_torch.models.yolo import Model
+    from yololp_tpu_torch.utils.config import Config
+
+    torch.manual_seed(0)
+    model = Model(Config.named("yolov6m"), deploy=deploy).eval()
+    shortcuts = sum(isinstance(m, BottleRep) and m.shortcut for m in model.modules())
+    assert shortcuts == 24
+    x = torch.randn(1, 3, 64, 64).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad(), recording():
+        model(x)
+    c = P.counters()
+    assert c["block.residual"] == shortcuts
+    assert c.get("block.residual_fused", 0) == (shortcuts if deploy else 0)
+    assert S.reader("residual_fused.serve")({}) == (100.0 if deploy else 0.0)

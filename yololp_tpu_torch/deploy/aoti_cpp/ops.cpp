@@ -29,6 +29,7 @@
 #include <deque>
 #include <map>
 #include <mutex>
+#include <optional>
 #include <tuple>
 #include <vector>
 
@@ -39,8 +40,9 @@ int int8_conv_weight_map(const int8_t* w, int O, long long K, long long ldw, voi
 int int8_conv_launch(const int8_t* x, const void* wmap, const float* a, const float* b, void* out,
                      int N, int H, int W, int C, int O, int KH, int stride, int mode, int relu,
                      int device, void* stream);
-int bias_act_launch(const void* y, const void* b, void* out, long long n, int C,
-                    long long inner, int dtype, int act, int device, void* stream);
+int bias_act_launch(const void* y, const void* b, const void* x, const void* alpha, void* out,
+                    long long n, int C, long long inner, int dtype, int act, int device,
+                    void* stream);
 }
 
 namespace {
@@ -177,7 +179,10 @@ at::Tensor int8_conv_cuda(const at::Tensor& x_q, const at::Tensor& w_q, const at
   return out;
 }
 
-at::Tensor bias_act_cuda(const at::Tensor& y, const at::Tensor& b, int64_t act) {
+// With x and alpha, the residual form: act(y + b) + alpha * x
+at::Tensor bias_act_cuda(const at::Tensor& y, const at::Tensor& b, int64_t act,
+                         const std::optional<at::Tensor>& x,
+                         const std::optional<at::Tensor>& alpha) {
   TORCH_CHECK(y.dim() == 4, "y must be a 4-D NCHW tensor, got ", y.sizes());
   TORCH_CHECK((y.scalar_type() == at::kFloat || y.scalar_type() == at::kBFloat16) &&
                   b.scalar_type() == y.scalar_type(),
@@ -189,14 +194,30 @@ at::Tensor bias_act_cuda(const at::Tensor& y, const at::Tensor& b, int64_t act) 
   TORCH_CHECK(b.is_contiguous(), "b must be contiguous");
   const bool channels_last = y.is_contiguous(at::MemoryFormat::ChannelsLast);
   TORCH_CHECK(channels_last || y.is_contiguous(), "y must be channels_last or contiguous");
+  TORCH_CHECK(x.has_value() == alpha.has_value(),
+              "the residual form takes x and alpha together");
+  if (x.has_value()) {
+    TORCH_CHECK(x->scalar_type() == y.scalar_type() && alpha->scalar_type() == y.scalar_type(),
+                "x and alpha must be y's dtype");
+    TORCH_CHECK(x->sizes() == y.sizes(), "x must have y's shape ", y.sizes(), ", got ",
+                x->sizes());
+    TORCH_CHECK(x->device() == y.device() && alpha->device() == y.device(),
+                "y, x and alpha on different devices");
+    TORCH_CHECK(x->is_contiguous(channels_last ? at::MemoryFormat::ChannelsLast
+                                               : at::MemoryFormat::Contiguous),
+                "x must be laid out as y");
+    TORCH_CHECK(alpha->numel() == 1, "alpha must be one element, got ", alpha->sizes());
+  }
   TORCH_CHECK(y.is_cuda(), "the kernel takes cuda tensors");
   at::Tensor out = at::empty_like(y);
   if (y.numel() == 0) return out;
   // channel of flat element e: (e / inner) % C
   const int64_t inner = channels_last ? 1 : y.size(2) * y.size(3);
   c10::DeviceGuard guard(y.device());  // the launcher sets its device
-  const int err = bias_act_launch(y.data_ptr(), b.data_ptr(), out.data_ptr(), y.numel(),
-                                  static_cast<int>(y.size(1)), inner,
+  const int err = bias_act_launch(y.data_ptr(), b.data_ptr(),
+                                  x.has_value() ? x->data_ptr() : nullptr,
+                                  alpha.has_value() ? alpha->data_ptr() : nullptr, out.data_ptr(),
+                                  y.numel(), static_cast<int>(y.size(1)), inner,
                                   y.scalar_type() == at::kFloat ? 0 : 1, static_cast<int>(act),
                                   y.device().index(), current_stream(y));
   TORCH_CHECK(err == 0, "bias_act kernel launch failed: cudaError ", err);
@@ -221,7 +242,8 @@ TORCH_LIBRARY(yololp_torch, m) {
         {at::Tag::needs_exact_strides});
   m.def("matmul(Tensor a, Tensor b) -> Tensor", {at::Tag::needs_exact_strides});
   m.def("matmul_nt(Tensor a, Tensor b_t) -> Tensor", {at::Tag::needs_exact_strides});
-  m.def("bias_act(Tensor y, Tensor b, int act) -> Tensor", {at::Tag::needs_exact_strides});
+  m.def("bias_act(Tensor y, Tensor b, int act, Tensor? x=None, Tensor? alpha=None) -> Tensor",
+        {at::Tag::needs_exact_strides});
   m.def("nms_gate(Tensor pred, float conf_thres, bool compat_ad4_bug) -> "
         "(Tensor box, Tensor score, Tensor rest, Tensor passed)",
         {at::Tag::needs_exact_strides});

@@ -54,32 +54,58 @@ def _epilogue_fusable(conv: nn.Module, x: torch.Tensor) -> bool:
             and not conv._forward_pre_hooks and not conv._forward_hooks)
 
 
-def conv_act(conv: nn.Module, x: torch.Tensor, act: int) -> torch.Tensor:
+def conv_act(conv: nn.Module, x: torch.Tensor, act: int, residual: torch.Tensor | None = None,
+             alpha: torch.Tensor | None = None) -> torch.Tensor:
     """`act(conv(x))` for a biased `nn.Conv2d` or `nn.ConvTranspose2d`, `act`
-    the epilogue's number (cuda_bias_act.NONE, RELU, SILU). Where
-    `_epilogue_fusable` allows, the conv runs without its bias and
-    `yololp_torch::bias_act` adds it and applies `act` in one pass (on the
-    card one kernel in place of PyTorch's broadcast add and a separate
-    activation; on the CPU its plain version); else `conv(x)` and the
-    activation, as the train graph needs them. While spans record, counts
-    `conv.biased` and, for the fused, `conv.epilogue_fused`. A conv of
+    the epilogue's number (cuda_bias_act.NONE, RELU, SILU); with `residual`,
+    a BottleRep's shortcut after it: `act(conv(x)) + alpha * residual` (alpha
+    None reads as 1). Where `_epilogue_fusable` allows, the conv runs without
+    its bias and `yololp_torch::bias_act` adds it and applies `act` in one
+    pass (on the card one kernel in place of PyTorch's broadcast add and a
+    separate activation; on the CPU its plain version), with `residual`
+    its residual form, which adds the shortcut in that pass too (on the card
+    always, raising on operands it does not take; on the CPU where the
+    conv's output and `residual` are laid out alike); else `conv(x)`, the
+    activation and the shortcut, as the train graph needs them. While spans
+    record, counts `conv.biased` and, for the fused, `conv.epilogue_fused`,
+    and `block.residual_fused` for a shortcut added in the pass. A conv of
     another type (an int8 plan's, which has its own epilogue) runs as it is,
     then `act`."""
     if not isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)):
-        return _ACT_FNS[act](conv(x))
+        return _shortcut(_ACT_FNS[act](conv(x)), residual, alpha)
     fused = _epilogue_fusable(conv, x)
     if profiler.recording():
         profiler.count("conv.biased", 1)
         if fused:
             profiler.count("conv.epilogue_fused", 1)
     if not fused:
-        return _ACT_FNS[act](conv(x))
+        return _shortcut(_ACT_FNS[act](conv(x)), residual, alpha)
     if isinstance(conv, nn.ConvTranspose2d):
         y = F.conv_transpose2d(x, conv.weight, None, conv.stride, conv.padding,
                                conv.output_padding, conv.groups, conv.dilation)
     else:
         y = conv._conv_forward(x, conv.weight, None)
-    return cuda_bias_act.bias_act(y, conv.bias, act)
+    if residual is None:
+        return cuda_bias_act.bias_act(y, conv.bias, act)
+    alpha = y.new_ones(1) if alpha is None else alpha
+    refused = y.device.type != "cuda" and cuda_bias_act.residual_refusal(y, residual, alpha)
+    if refused:
+        return _shortcut(cuda_bias_act.bias_act(y, conv.bias, act), residual, alpha)
+    if profiler.recording():
+        profiler.count("block.residual_fused", 1)
+    return cuda_bias_act.bias_act(y, conv.bias, act, residual, alpha)
+
+
+def _shortcut(y: torch.Tensor, residual: torch.Tensor | None, alpha: torch.Tensor | None):
+    """y + alpha * residual, as a BottleRep adds its shortcut (y alone
+    without one)."""
+    if residual is None:
+        return y
+    return y + (alpha * residual if alpha is not None else residual)
+
+
+def _hooked(m: nn.Module) -> bool:
+    return bool(m._forward_pre_hooks or m._forward_hooks)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -156,6 +182,14 @@ class ConvBNAct(nn.Module):
         self.bn = None if deploy else batch_norm(out_channels)
         self.act = _ACTS[act]()
 
+    def deploy_conv(self):
+        """(conv, act) when this block is one biased conv and its epilogue
+        (deploy) and nothing hooks it, else None: a caller may then run the
+        block as `conv_act(conv, x, act, ...)` in place of calling it."""
+        if self.bn is None and not _hooked(self):
+            return self.conv, _ACT_CODES[type(self.act)]
+        return None
+
     def forward(self, x):
         if self.bn is None:
             return conv_act(self.conv, x, _ACT_CODES[type(self.act)])
@@ -189,6 +223,11 @@ class RepVGGBlock(nn.Module):
         self.rbr_1x1_bn = batch_norm(out_channels)
         self.rbr_identity_bn = (batch_norm(out_channels)
                                 if in_channels == out_channels and stride == 1 else None)
+
+    def deploy_conv(self):
+        """(conv, act) in deploy mode when nothing hooks the block, else
+        None (ConvBNAct.deploy_conv)."""
+        return (self.conv, cuda_bias_act.RELU) if self.deploy and not _hooked(self) else None
 
     def forward(self, x):
         if self.deploy:
@@ -269,6 +308,11 @@ class ConvWrapper(nn.Module):
         self.block = ConvBNAct(in_channels, out_channels, 3, stride, act=self.act,
                                conv_bias=True, deploy=deploy)
 
+    def deploy_conv(self):
+        """Its ConvBNAct's (conv, act) when nothing hooks this block either
+        (ConvBNAct.deploy_conv)."""
+        return None if _hooked(self) else self.block.deploy_conv()
+
     def forward(self, x):
         return self.block(x)
 
@@ -281,7 +325,10 @@ class SimConvWrapper(ConvWrapper):
 
 class BottleRep(nn.Module):
     """Two blocks, 'conv1' and 'conv2', with a residual when in==out; with
-    weight=True the residual is scaled by a learnable 'alpha' of shape (1,)."""
+    weight=True the residual is scaled by a learnable 'alpha' of shape (1,).
+    Where 'conv2' hands over its deploy conv (`deploy_conv`), the residual
+    joins that conv's epilogue (`conv_act`); while spans record, each
+    residual counts `block.residual`."""
 
     def __init__(self, in_channels: int, out_channels: int, block=RepVGGBlock,
                  weight: bool = False, deploy: bool = False):
@@ -292,10 +339,18 @@ class BottleRep(nn.Module):
         self.alpha = nn.Parameter(torch.ones(1)) if self.shortcut and weight else None
 
     def forward(self, x):
-        y = self.conv2(self.conv1(x))
+        h = self.conv1(x)
         if not self.shortcut:
-            return y
-        return y + (self.alpha * x if self.alpha is not None else x)
+            return self.conv2(h)
+        if profiler.recording():
+            profiler.count("block.residual", 1)
+        # a block without the method (hyper-search, RepOpt, an int8 plan's swap) runs as itself
+        hand_over = getattr(self.conv2, "deploy_conv", None)
+        deploy = hand_over() if hand_over is not None else None
+        if deploy is None:
+            return _shortcut(self.conv2(h), x, self.alpha)
+        conv, act = deploy
+        return conv_act(conv, h, act, residual=x, alpha=self.alpha)
 
 
 class RepBlock(nn.Module):

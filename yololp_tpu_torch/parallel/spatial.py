@@ -76,7 +76,7 @@ _T = torch.Tensor
 # calls that keep every row to itself
 _ROW_LOCAL = {F.relu, torch.relu, F.silu, torch.sigmoid, _T.sigmoid, torch.add, torch.mul,
               _T.add, _T.mul, _T.__add__, _T.__radd__, _T.__mul__, _T.__rmul__, _T.dim, _T.size,
-              torch.ops.yololp_torch.bias_act}
+              _T.numel, _T.is_contiguous, torch.ops.yololp_torch.bias_act}
 # tensor attributes read under the mode (a getset descriptor's __get__)
 _ATTRIBUTES = {"dtype", "shape", "device", "ndim", "is_cuda", "layout", "grad_fn",
                "requires_grad"}
