@@ -253,7 +253,7 @@ def test_the_reader_reads_a_share_and_nothing_from_an_empty_store():
     assert (m["source"], m["layer"], m["moves"], m["unit"]) == (
         "program_counter", "model step", "images_per_s", "%")
     assert m["workloads"] == ["yololps-b128-dense", "yolov6m-b128-dense",
-                              "yolov6l6-b32-1280-dense"]
+                              "yolov6l6-b32-1280-dense", "yololps-b128-int8-dense"]
 
 
 # ---------------- the residual form, `bias_act(y, b, act, x, alpha)` ----------------

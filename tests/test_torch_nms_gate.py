@@ -265,7 +265,7 @@ def test_counters_and_the_reader():
     assert (m["source"], m["layer"], m["moves"], m["unit"], m["better"]) == (
         "program_counter", "NMS stage", "images_per_s", "%", "higher")
     assert m["workloads"] == ["yololps-b128-dense", "yolov6m-b128-dense",
-                              "yolov6l6-b32-1280-dense"]
+                              "yolov6l6-b32-1280-dense", "yololps-b128-int8-dense"]
 
 
 class _NMS(torch.nn.Module):

@@ -7,8 +7,11 @@ same bits recording or not; the benchmark's readers of the spans and
 counters read a filled store and nothing from an empty one; a P6 model
 records its three stride-64 spans, nested in the model's, where a P5 model
 records none, and both count B x A decoded anchors; an exported graph holds
-no profiler op; threads recording at once keep their own requests. A card is stood in for by fake CUDA events where a device time
-is needed. And the inferer's FPS is images over seconds."""
+no profiler op; threads recording at once keep their own requests; an
+Inferer serving its int8 plan records the same spans, with `int8.quantize`
+inside the model's, and counts its int8 conv launches. A card is stood in
+for by fake CUDA events where a device time is needed. And the inferer's FPS
+is images over seconds."""
 
 import json
 import sys
@@ -52,6 +55,7 @@ P6_SPANS = {  # the P6 models' spans -> the span each nests in
     "model.head.p6": "model.head",
 }
 CELLS = ["yololps-b128-dense", "yolov6m-b128-dense", "yolov6l6-b32-1280-dense"]
+INT8_CELL = "yololps-b128-int8-dense"
 
 
 def recording():
@@ -370,7 +374,9 @@ def test_the_readers_are_the_benchmarks_per_layer_metrics():
         m = names[metric]
         assert m["moves"] == "images_per_s"
         assert m["source"] == ("program_counter" if metric in counted else "program_span")
-        assert m["workloads"] == (CELLS[2:] if metric == "p6_ms.serve" else CELLS)
+        assert m["workloads"] == (CELLS[2:] if metric == "p6_ms.serve" else CELLS + [INT8_CELL])
+    for metric in ("mfu.int8", "int8_conv_roofline.int8", "quantize_ms.int8"):
+        assert names[metric]["workloads"] == [INT8_CELL]
 
 
 class NMSModule(torch.nn.Module):
@@ -420,3 +426,48 @@ def test_the_residual_counters_count_each_shortcut_bottlerep(deploy):
     assert c["block.residual"] == shortcuts
     assert c.get("block.residual_fused", 0) == (shortcuts if deploy else 0)
     assert S.reader("residual_fused.serve")({}) == (100.0 if deploy else 0.0)
+
+
+def test_the_int8_run_records_its_spans_and_counts_its_launches(batch):
+    """An Inferer serving its int8 plan runs inside the served path's spans,
+    opens `int8.quantize` inside the model's spans once a float -> code
+    quantize, and counts the plan's 68 int8 conv launches and the elements
+    it quantized; the float path opens no `int8.*` span and counts
+    nothing of them."""
+    from yololp_tpu_torch.quant import int8_infer
+    from yololp_tpu_torch.quant.quantize import calibrate
+
+    inf = Inferer(None, None, "yololpn", img_size=64, half=True, conf_thres=0.0, max_det=20,
+                  device="cpu")
+    with recording():
+        inf._run(batch)
+    assert set(P.span_totals()) == set(SERVED)
+    assert not {"int8.convs", "int8.quantized"} & set(P.counters())
+    amax = calibrate(inf.model, [batch], device="cpu")
+    inf.use_int8(amax)
+    floats = []  # the float inputs of the int8 modules: each quantized once
+
+    def seen(_m, args):
+        if args[0].is_floating_point():
+            floats.append(args[0].numel())
+
+    hooks = [m.register_forward_pre_hook(seen) for m in inf.model.modules()
+             if isinstance(m, (int8_infer.Int8Conv2d, int8_infer.Int8RepBlock))]
+    P.reset_spans()
+    with recording():
+        det, valid, num = inf._run(batch)
+    for h in hooks:
+        h.remove()
+    totals, spans = P.span_totals(), P.spans()
+    assert set(totals) == set(SERVED) | {"int8.quantize"}
+    assert all(totals[n]["count"] == 1 for n in SERVED)
+    by_id = {s["id"]: s["name"] for s in spans}
+    parents = {by_id[s["parent"]] for s in spans if s["name"] == "int8.quantize"}
+    assert parents == {"model.backbone", "model.neck", "model.head"}
+    c = P.counters()
+    assert c["int8.convs"] == 68 and int(num.min()) > 0
+    assert totals["int8.quantize"]["count"] == len(floats) > 0
+    assert c["int8.quantized"] == sum(floats)
+    P.reset_spans()
+    again = inf._run(batch)  # recording nothing, the same bits
+    assert P.counters() == {} and all(torch.equal(a, b) for a, b in zip((det, valid, num), again))

@@ -305,7 +305,9 @@ def int8_plan(model, state, amax, device="cuda"):
     """The int8 program, built once: the "conv" plan (every calibrated conv
     in csrc/int8_conv.cu, RepBlock chains, handoffs between stages) of the
     fused deploy `model` with kernels quantized from its fp32 deploy
-    `state`. run(images_u8) -> (det, valid, num); a failure raises."""
+    `state`, the plan `Inferer.use_int8` serves (`int8_infer.int8_model`),
+    run by the Inferer's entry and NMS. run(images_u8) -> (det, valid,
+    num), `Inferer._run`'s outputs bit for bit; a failure raises."""
     return int8_infer.make_int8_infer_fn(model, state, amax, conv_impl="conv",
                                          stage_handoffs=True, device=device, **INT8_NMS_KW)
 

@@ -8,6 +8,10 @@ where an image is read, drawn or written). While a profiler records, `_run`
 is the span `infer.run` and the H2D copy with the /255 the span
 `infer.entry` (utils/profiler.py); the model and the NMS add theirs inside.
 
+`use_int8` swaps the model for its true-int8 plan (quant/int8_infer.py:
+calibrated convs in csrc/int8_conv.cu), which then runs inside the same
+`_run`, `predict` and spans.
+
 half=True computes in bf16, as the JAX inferer does by default. half=False is
 fp32 and turns TF32 off for cuDNN convs and matmuls
 (torch.backends.cudnn.allow_tf32 / torch.backends.cuda.matmul.allow_tf32 =
@@ -107,6 +111,21 @@ class Inferer:
         self.img_size = check_img_size(img_size, max(model.detect.strides))
         self.source = source
         self.fps_calc = CalcFPS()
+
+    def use_int8(self, amax_by_path: Mapping[str, float], conv_impl: str = "conv"):
+        """Serve in true int8 from now on: `self.model` becomes the int8 plan
+        of the deploy model (`int8_infer.int8_model`: kernels quantized per
+        output channel from the fp32 `self.variables`, each calibrated conv
+        in int8 with the input amax of `amax_by_path`, deploy RepBlocks as
+        int8 chains, single-consumer ReLU producers handing int8 codes to
+        their consumer; `conv_impl` as `int8_infer.CONV_IMPLS`). `_run`,
+        `predict` and their spans are unchanged. A plan that cannot be built
+        raises; nothing falls back. Returns self."""
+        from yololp_tpu_torch.quant import int8_infer
+
+        self.model = int8_infer.int8_model(self.model, self.variables, dict(amax_by_path),
+                                           conv_impl=conv_impl, device=self.device)
+        return self
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -14,6 +14,10 @@ the weights through a TMA tensor map, built once per weight tensor and kept
 in `_WEIGHT_MAPS` (with a reference to the tensor, so that its memory is
 not reused while the map points at it).
 
+While spans record (utils/profiler.py), each call of `int8_conv` adds 1 to
+the counter `int8.convs`, and each float -> code quantize (`quantize_codes`)
+is the span `int8.quantize` and adds its elements to `int8.quantized`.
+
 Epilogue (per output channel o): y = acc * a[o] + b[o] as a multiply and an
 add rounded separately, then int8 `clip(round_half_even(y), 0 if relu else
 -128, 127)`, or a float `relu(y)` in fp32 or bf16, or (out_dtype int32) the
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from yololp_tpu_torch.ops import _build
 from yololp_tpu_torch.ops.cuda_matmul import rows16
 from yololp_tpu_torch.ops.division import reciprocal
+from yololp_tpu_torch.utils import profiler
 
 _LAUNCH = _build.Kernel("int8_conv", "int8_conv_launch",
                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
@@ -176,6 +181,7 @@ def int8_conv(x_q, w_q, a, b, stride: int = 1, relu: bool = True,
     """conv(int8, int8) -> int32 -> fused epilogue, NHWC in and out, the op
     `yololp_torch::int8_conv` (ops/library.py): the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
+    profiler.count("int8.convs", 1)
     return torch.ops.yololp_torch.int8_conv(x_q, w_q, a, b, int(stride), bool(relu),
                                             out_mode(out_dtype))
 
@@ -215,8 +221,11 @@ def conv3x3_int8_fused(x_q, w9, a, b, relu: bool = True,
 def quantize_codes(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
     """clip(round_half_even(x / scale), -128, 127) as int8, in fp32, with the
     division as the jitted JAX package computes it (its scale is a trace-time
-    constant): a multiply by `inv_scale`, from `inv_host_scale`."""
-    return torch.round(x.float() * inv_scale).clamp(-128.0, 127.0).to(torch.int8)
+    constant): a multiply by `inv_scale`, from `inv_host_scale`. The span
+    `int8.quantize`, counting its elements in `int8.quantized`."""
+    with profiler.annotate("int8.quantize", x.device):
+        profiler.count("int8.quantized", x.numel())
+        return torch.round(x.float() * inv_scale).clamp(-128.0, 127.0).to(torch.int8)
 
 
 def host_scale(amax: float) -> torch.Tensor:

@@ -29,9 +29,8 @@ from torch import nn
 from yololp_tpu_torch.layers.blocks import ConvBNAct, LinearAddBlock, RepBlock, RepVGGBlock
 from yololp_tpu_torch.ops import cuda_conv, cuda_matmul
 from yololp_tpu_torch.ops.nms import non_max_suppression
-from yololp_tpu_torch.quant.quantize import (DEFAULT_SKIP_SUBSTRINGS, _image_tensor, _skip,
-                                             check_model_device, model_device_dtype,
-                                             module_path)
+from yololp_tpu_torch.quant.quantize import (DEFAULT_SKIP_SUBSTRINGS, _skip, check_model_device,
+                                             model_device_dtype, module_path)
 
 CONV_IMPLS = ("conv", "dots", "pallas")
 _TRANSPOSE_CONV = "upsample_transpose"
@@ -456,6 +455,21 @@ def int8_apply(model: nn.Module, x: torch.Tensor, amax_by_path: Dict[str, float]
     return int8_model(x)
 
 
+def int8_model(model: nn.Module, state: Mapping[str, torch.Tensor],
+               amax_by_path: Dict[str, float],
+               skip_substrings: Sequence[str] = DEFAULT_SKIP_SUBSTRINGS,
+               chain_repblocks: bool = True, stage_handoffs: bool = True,
+               conv_impl: str = "conv", device=None) -> nn.Module:
+    """The int8 plan of the fused deploy `model` (in its compute dtype), its
+    kernels quantized per output channel from `state`, its fp32 deploy state
+    dict (as in the JAX package): `build_int8_model`'s copy, built once. It
+    is what `Inferer.use_int8` serves; a plan that cannot be built raises."""
+    table = quantize_kernels_int8(state, skip_substrings, device=device)
+    return build_int8_model(model, amax_by_path, table, skip_substrings,
+                            chain_repblocks=chain_repblocks, stage_handoffs=stage_handoffs,
+                            conv_impl=conv_impl)
+
+
 def make_int8_infer_fn(model: nn.Module, state: Mapping[str, torch.Tensor],
                        amax_by_path: Dict[str, float],
                        skip_substrings: Sequence[str] = DEFAULT_SKIP_SUBSTRINGS,
@@ -464,23 +478,25 @@ def make_int8_infer_fn(model: nn.Module, state: Mapping[str, torch.Tensor],
                        candidate_selector: str = "topk", conv_impl: str = "conv",
                        stage_handoffs: bool = True, device="cuda"):
     """uint8 NHWC batch -> detections (det, valid, num) with calibrated convs
-    in int8: the drop-in for `Inferer._run`. `model` is the fused deploy
-    model in its compute dtype, `state` its fp32 deploy state dict (the
-    kernels are quantized from fp32, as in the JAX package). The plan is
-    built once; a failure raises and nothing falls back."""
+    in int8, for callers that take a bare function: the plan `Inferer.use_int8`
+    serves (`int8_model`), run by the inferer's entry (`deploy_decode`) and
+    NMS, so that its outputs are `Inferer._run`'s bit for bit. `model` is the
+    fused deploy model in its compute dtype, `state` its fp32 deploy state
+    dict. The plan is built once; a failure raises and nothing falls back."""
+    from yololp_tpu_torch.core.inferer import deploy_decode
+
     dev = check_model_device(model, device)
-    table = quantize_kernels_int8(state, skip_substrings, device=dev)
-    int8_model = build_int8_model(model, amax_by_path, table, skip_substrings,
-                                  stage_handoffs=stage_handoffs, conv_impl=conv_impl)
-    dtype = model_device_dtype(int8_model)[1]
+    int8 = int8_model(model, state, amax_by_path, skip_substrings,
+                      stage_handoffs=stage_handoffs, conv_impl=conv_impl, device=dev)
+    dtype = model_device_dtype(int8)[1]
 
     @torch.inference_mode()
     def run(images_u8):
-        pred = int8_model(_image_tensor(images_u8, dev, dtype))
+        pred = deploy_decode(int8, images_u8, dev, dtype)
         if not with_nms:
             return pred
-        return non_max_suppression(pred.float(), conf_thres=conf_thres, iou_thres=iou_thres,
+        return non_max_suppression(pred, conf_thres=conf_thres, iou_thres=iou_thres,
                                    max_det=max_det, candidate_selector=candidate_selector)
 
-    run.int8_model = int8_model  # the swapped model, for inspection
+    run.int8_model = int8  # the swapped model, for inspection
     return run

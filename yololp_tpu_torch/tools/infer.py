@@ -66,14 +66,9 @@ def main(args=None):
                       max_det=args.max_det, nms_selector=args.nms_selector,
                       device=args.device)
     if args.int8:
-        from yololp_tpu_torch.quant.int8_infer import make_int8_infer_fn
         from yololp_tpu_torch.quant.quantize import load_amax
 
-        inferer._run = make_int8_infer_fn(
-            inferer.model, inferer.variables, load_amax(args.calib_pt),
-            conf_thres=args.conf_thres, iou_thres=args.iou_thres,
-            max_det=args.max_det, candidate_selector=args.nms_selector,
-            conv_impl=args.conv_impl, device=args.device)
+        inferer.use_int8(load_amax(args.calib_pt), conv_impl=args.conv_impl)
     save_dir = osp.join(args.project, args.name)
     if args.batch_size > 1:
         results = inferer.infer_batched(save_dir, batch_size=args.batch_size,
