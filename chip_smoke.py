@@ -34,8 +34,9 @@ plain halves of 26 and 27. Phases, each of which raises on failure:
   7. the int8 main path: calibrate (max) on two batches of the seeded frames
      on the card, write and reload the amax json, install
      `make_int8_infer_fn(conv_impl="pallas")` as the inferer's `_run` (as the
-     CLI's --int8 does) and run `detect_batch` on the 32 frames, reading both
-     kernels' launch counts around that call; the kernel against plain on a
+     CLI's --int8 does) and run `detect_batch` on the 32 frames, reading the
+     int8_conv, greedy_nms and quantize launch counts around that call (one
+     quantize launch a float -> code quantize); the kernel against plain on a
      chain link's own entry codes from the run; the card's int8 decode
      through the plain NMS on the CPU (exact); one image with
      conv_impl="conv" in fp32 (TF32 off) on the card against the CPU port:
@@ -51,7 +52,14 @@ plain halves of 26 and 27. Phases, each of which raises on failure:
      of one int8 batch, and every distinct int8 conv launch of the main path
      timed alone (kernel, plain version, bound, and a cuDNN bf16 conv of the
      same shape as a reference point), with each launch's tile, stage count
-     and shared memory and the kernel's ptxas registers;
+     and shared memory and the kernel's ptxas registers; then one batch
+     while spans record (its `int8.quantize` spans, the `int8.quantize_fused`
+     count and the quantize launches all equal phase 7's count), and every
+     quantize of phase 7's batch at b128 (its input tiled 4 times, its
+     layout and scale): the op bit for bit against its plain version with
+     the input's strides, the kernel's time alone beside its bound (one read
+     of x, one write of the codes) and the plain version's five passes, and
+     the batch's launches on the device;
   10. the dots int8 main path: with phase 7's calibration,
      `make_int8_infer_fn(conv_impl="dots")` and then "conv" as the inferer's
      `_run`, `detect_batch` on the 32 frames, the launch counts of both
@@ -154,10 +162,11 @@ plain halves of 26 and 27. Phases, each of which raises on failure:
      program of phase 4's inferer and the int8 one on phase 7's
      calibration (the conv plan), each returning its decode beside
      det/valid/num, taken by torch.export at batch 32 and 640. Saved and
-     loaded as a .pt2: greedy_nms once, and int8_conv (68) and the deploy
-     convs' bias_act as often as eager, a batch (no bias_act inside the
-     AOTInductor package below: export.inductor_program hands Inductor the
-     epilogues' plain arithmetic to fuse); det/valid/num equal to the plain
+     loaded as a .pt2: greedy_nms once, and int8_conv (68), the deploy
+     convs' bias_act and the int8 quantize as often as eager, a batch, one
+     node a launch (no bias_act or quantize inside the AOTInductor package
+     below: export.inductor_program hands Inductor the epilogues' and the
+     quantizes' plain arithmetic to fuse); det/valid/num equal to the plain
      CPU NMS on its own decode
      and to eager's bit for bit. Compiled into an AOTInductor package
      (compile seconds printed) and run through aoti_load_package: the same
@@ -276,7 +285,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 from kernel_cases import (CHAINS, EPILOGUE_BATCH, MM_PROBE, RESIDUAL_IMG,  # noqa: E402
-                          RESIDUAL_SHAPES, chain_boxes, check_residual,
+                          RESIDUAL_SHAPES, chain_boxes, check_quantize, check_residual,
                           epilogue_operand, eval_on_card, gate_decode, gate_equal,
                           labelled_frames, loader_batches, matmul_operands, own_gts,
                           randomize_parameters, unfused_epilogue)
@@ -566,6 +575,87 @@ def time_int8_launches(cuda_conv, counts, rng, dev, card):
     return tot, rows
 
 
+def recorded_quantize_counts(run, batch):
+    """One batch of the int8 plan `run` while spans record: the `int8.quantize`
+    spans, the `int8.quantize_fused` count (the kernel's launches, counted by
+    its launcher) and the `quantize` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yololp_tpu_torch.ops import _build
+    from yololp_tpu_torch.utils import profiler as P
+
+    P.reset_spans()
+    before = _build.launches("quantize")
+    with profile(activities=[ProfilerActivity.CPU]):
+        run(batch)
+        torch.cuda.synchronize()
+    spans = P.span_totals().get("int8.quantize", {}).get("count", 0)
+    fused = P.counters().get("int8.quantize_fused", 0)
+    P.reset_spans()
+    return dict(spans=spans, fused=fused, launches=_build.launches("quantize") - before)
+
+
+def like_at_batch(x, batch):
+    """x's values tiled along dim 0 to `batch`, with x's order of strides
+    (channels_last stays channels_last)."""
+    order = sorted(range(x.dim()), key=lambda d: x.stride(d), reverse=True)
+    back = sorted(range(x.dim()), key=order.__getitem__)
+    tiled = torch.cat([x] * (batch // x.shape[0]))
+    return tiled.permute(order).contiguous().permute(back)
+
+
+def time_quantize_launches(quantized, card):
+    """Every float -> code quantize of one main-path batch, at b128: the
+    input of each quantize of the run tiled 4 times along the batch, with its
+    layout and the plan's own scale. The op bit for bit against its plain
+    version (codes and strides: kernel_cases.check_quantize), the kernel's
+    time alone by CUDA events (its launcher called directly, as phase 8
+    times int8_conv), the plain version's five passes, the bytes' bound (x
+    read once, the codes written once, at 3.35 TB/s), and the device time of
+    the batch's launches by torch.profiler. Returns totals and the rows."""
+    from yololp_tpu_torch.ops import cuda_conv, cuda_quantize
+
+    rows, calls = [], []
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes=0, elements=0, max_abs_err=0.0)
+    for x, inv in quantized:
+        big = like_at_batch(x, EPILOGUE_BATCH)
+        got = cuda_conv.quantize_codes(big, inv)
+        check_quantize((big, inv), got, f"{tuple(big.shape)} {big.dtype} at the plan's scale")
+        nbytes = big.numel() * (big.element_size() + 1)
+        bound_ms = nbytes / HBM_BYTES_S * 1e3
+        fn = lambda big=big, inv=inv: cuda_quantize.quantize_codes_cuda(big, inv)  # noqa: E731
+        fn()
+        ms = float(np.median(cuda_ms(fn, 20)))
+        plain_ms = float(np.median(cuda_ms(
+            lambda: cuda_quantize.quantize_codes_plain(big, inv), 2, 3)))
+        rows.append(dict(shape=list(big.shape), dtype=str(big.dtype)[6:],
+                         channels_last=big.is_contiguous(memory_format=torch.channels_last),
+                         inv_scale=inv, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         share=bound_ms / ms))
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                       ("bytes", nbytes), ("elements", big.numel())):
+            tot[key] += v
+        calls.append(fn)
+        del got
+    device = profiled_device_ms(lambda: [fn() for fn in calls], "quantize_kernel",
+                                tot["bound_ms"], calls=3)
+    tot["device_ms"] = device
+    largest = max(rows, key=lambda r: r["bound_ms"])
+    smallest = min(rows, key=lambda r: r["bound_ms"])
+    for label, r in (("largest", largest), ("smallest", smallest)):
+        print(f"[{card}] quantize {label} {r['shape']} {r['dtype']} "
+              f"(channels_last {r['channels_last']}): kernel {r['ms']:.4f} ms alone, bound "
+              f"{r['bound_ms']:.4f} ms ({100 * r['share']:.1f}% of it), plain {r['plain_ms']:.3f} ms")
+    on_device = ("not measured (the profiler lost launches)" if device is None else
+                 f"{device:.3f} ms ({100 * tot['bound_ms'] / device:.1f}% of the bound)")
+    print(f"[{card}] quantize, all {len(rows)} of one batch at b{EPILOGUE_BATCH} "
+          f"({tot['elements'] / 1e9:.3f} G elements, {tot['bytes'] / 1e9:.3f} GB), each bit for "
+          f"bit with the plain version: kernel {tot['ms']:.3f} ms alone, device {on_device}, "
+          f"bound {tot['bound_ms']:.3f} ms, plain (five eager passes) {tot['plain_ms']:.2f} ms",
+          flush=True)
+    return tot, rows
+
+
 def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer32, cpu32):
     """The int8 main path (phase 7) and its times (phase 8)."""
     import collections
@@ -601,13 +691,27 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
     inferer8.warmup()
     log = LaunchLog(run8.int8_model, int8_infer)
 
-    dets, (launches, nms_launches) = counted(lambda: inferer8.detect_batch(imgs), "int8_conv",
-                                             "greedy_nms")
+    quantized = []  # (x, inv_scale) of each float -> code quantize of the batch
+    quantize = cuda_conv.quantize_codes
+
+    def recorded(x, inv_scale):
+        quantized.append((x, inv_scale))
+        return quantize(x, inv_scale)
+
+    cuda_conv.quantize_codes = recorded
+    try:
+        dets, (launches, nms_launches, q_launches) = counted(
+            lambda: inferer8.detect_batch(imgs), "int8_conv", "greedy_nms", "quantize")
+    finally:
+        cuda_conv.quantize_codes = quantize
     log.remove()
     if launches < 30 or nms_launches < 1:
         raise AssertionError(f"int8 main path launched int8_conv {launches}x, greedy_nms {nms_launches}x")
     if launches != len(log.launches):
         raise AssertionError(f"{launches} int8_conv launches, {len(log.launches)} recorded")
+    if not quantized or q_launches != len(quantized):
+        raise AssertionError(f"int8 main path: {q_launches} quantize launches for "
+                             f"{len(quantized)} float -> code quantizes")
     n_max = min(inferer8.max_det, TOPK)
     for d in dets:
         if d.ndim != 2 or d.shape[1] != 28 or len(d) > n_max or not np.isfinite(d).all():
@@ -616,8 +720,9 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
         raise AssertionError("an image came back without detections on the int8 path")
     chain_launches = sum(links for _, _, _, links in CHAINS)
     print(f"int8 main path: yololps {IMG}px bf16, batch {BATCH}, conv_impl pallas, conf_thres {conf:.6f}, "
-          f"int8_conv launches {launches} ({chain_launches} chain links), greedy_nms launches "
-          f"{nms_launches}, detections per image {min(map(len, dets))}..{max(map(len, dets))}")
+          f"int8_conv launches {launches} ({chain_launches} chain links), quantize launches "
+          f"{q_launches} (one a float -> code quantize), greedy_nms launches {nms_launches}, "
+          f"detections per image {min(map(len, dets))}..{max(map(len, dets))}")
 
     # the kernel on a chain link's own entry codes from the run
     path = "backbone/ERBlock_3_rep"
@@ -690,10 +795,17 @@ def phase_int8_main(results, card, dev, cfg, weights, batch, imgs, rng, inferer3
     print(f"[{card}] int8_conv, all {launches} launches of one batch timed alone: kernel "
           f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.1f} ms, bound {tot['bound_ms']:.4f} ms, "
           f"cuDNN bf16 reference {tot['cudnn_bf16_ms']:.3f} ms")
+    q_counts = recorded_quantize_counts(run8, batch)
+    if q_counts != dict(spans=q_launches, fused=q_launches, launches=q_launches):
+        raise AssertionError(f"a recorded int8 batch: {q_counts}, {q_launches} quantizes a batch")
+    q_tot, q_rows = time_quantize_launches(quantized, card)
+    del quantized
+    q_tot.update(launches=q_launches, recorded=q_counts)
     results["int8"] = dict(launches=launches, nms_launches=nms_launches, conf_thres=conf,
                            fp32_err_px=err_px, fp32_err_score=err_score, fp32_noise=noise, median_ms=float(np.median(ms)),
                            img_s=img_s, runs_ms=ms, profile=profile, kernel_profile_ms=kernel_dev_ms,
-                           per_batch=tot, launches_timed=rows)
+                           per_batch=tot, launches_timed=rows, quantize=q_tot,
+                           quantize_timed=q_rows)
     return launches, err, tot, dict(inferer8=inferer8, amax=amax, conf=conf)
 
 
@@ -2436,41 +2548,45 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
         n_nms = sum("yololp_torch.greedy_nms_mask" in t for t in nodes)
         n_conv = sum("yololp_torch.int8_conv" in t for t in nodes)
         n_ba = sum("yololp_torch.bias_act" in t for t in nodes)
-        want, (eager_nms, eager_conv, eager_ba) = counted(eager, "greedy_nms", "int8_conv",
-                                                          "bias_act")
+        n_q = sum("yololp_torch.quantize_codes" in t for t in nodes)
+        want, (eager_nms, eager_conv, eager_ba, eager_q) = counted(
+            eager, "greedy_nms", "int8_conv", "bias_act", "quantize")
 
         path = os.path.join(tmp, f"{label}.pt2")
         torch.export.save(prog, path)
         loaded = torch.no_grad()(torch.export.load(path).module())
-        got, (nms_n, conv_n, ba_n) = counted(lambda: loaded(staged), "greedy_nms", "int8_conv",
-                                             "bias_act")
+        got, (nms_n, conv_n, ba_n, q_n) = counted(lambda: loaded(staged), "greedy_nms",
+                                                  "int8_conv", "bias_act", "quantize")
         kept = nms_on_own_decode(got, kw, f"{label} .pt2")
-        if ((nms_n, conv_n, ba_n) != (1, eager_conv, eager_ba)
-                or (n_nms, n_conv, n_ba) != (1, eager_conv, eager_ba)):
+        if ((nms_n, conv_n, ba_n, q_n) != (1, eager_conv, eager_ba, eager_q)
+                or (n_nms, n_conv, n_ba, n_q) != (1, eager_conv, eager_ba, eager_q)
+                or (eager_q > 0) != (calib is not None)):
             raise AssertionError(f"{label} .pt2: greedy_nms {nms_n}, int8_conv {conv_n}, "
-                                 f"bias_act {ba_n} launches a batch, {n_nms} / {n_conv} / "
-                                 f"{n_ba} nodes; eager {eager_nms} / {eager_conv} / {eager_ba}")
+                                 f"bias_act {ba_n}, quantize {q_n} launches a batch, {n_nms} / "
+                                 f"{n_conv} / {n_ba} / {n_q} nodes; eager {eager_nms} / "
+                                 f"{eager_conv} / {eager_ba} / {eager_q}")
         for name, a, b in zip(("det", "valid", "num"), got, want):
             if not torch.equal(a, b):
                 raise AssertionError(f"{label} .pt2: {name} != the eager run's")
         print(f"[{card}] phase 21 {label}: torch.export in {export_s:.1f} s, "
-              f"{n_nms} greedy_nms_mask, {n_conv} int8_conv and {n_ba} bias_act nodes; the "
-              f".pt2 saved and loaded: greedy_nms {nms_n}, int8_conv {conv_n}, bias_act "
-              f"{ba_n} launches a batch (eager {eager_nms} / {eager_conv} / {eager_ba}); "
+              f"{n_nms} greedy_nms_mask, {n_conv} int8_conv, {n_ba} bias_act and {n_q} "
+              f"quantize_codes nodes; the .pt2 saved and loaded: greedy_nms {nms_n}, int8_conv "
+              f"{conv_n}, bias_act {ba_n}, quantize {q_n} launches a batch (eager {eager_nms} / "
+              f"{eager_conv} / {eager_ba} / {eager_q}); "
               f"det/valid/num == plain CPU NMS on its own "
               f"decode (kept {kept[0]}..{kept[1]}) and == the eager run, bit for bit",
               flush=True)
 
         aoti_path, compile_s = compile_aoti(prog, os.path.join(tmp, f"{label}.aoti.pt2"))
         pkg = torch._inductor.aoti_load_package(aoti_path)
-        got_a, (nms_a, conv_a, ba_a) = counted(lambda: pkg(staged), "greedy_nms", "int8_conv",
-                                               "bias_act")
+        got_a, (nms_a, conv_a, ba_a, q_a) = counted(lambda: pkg(staged), "greedy_nms",
+                                                    "int8_conv", "bias_act", "quantize")
         kept = nms_on_own_decode(got_a, kw, f"{label} AOTInductor")
-        # the package's epilogues are Inductor's (export.inductor_program): no bias_act
-        if (nms_a, conv_a, ba_a) != (1, eager_conv, 0):
+        # the package's epilogues and quantizes are Inductor's (export.inductor_program)
+        if (nms_a, conv_a, ba_a, q_a) != (1, eager_conv, 0, 0):
             raise AssertionError(f"{label} AOTInductor: greedy_nms {nms_a}, int8_conv "
-                                 f"{conv_a}, bias_act {ba_a} launches a batch; eager "
-                                 f"{eager_nms} / {eager_conv} / {eager_ba}")
+                                 f"{conv_a}, bias_act {ba_a}, quantize {q_a} launches a batch; "
+                                 f"eager {eager_nms} / {eager_conv} / {eager_ba} / {eager_q}")
         # eager's decode: the .pt2's, which replays eager's ops bit for bit
         dec_a, dec_e = got_a[3].float().cpu(), got[3].float().cpu()
         err_px = float((dec_a[..., :13] - dec_e[..., :13]).abs().max())
@@ -2520,10 +2636,12 @@ def phase_export(results, card, dev, inferer, ctx8, batch, runner_build, tmp):
               f"dets out; CUDA events, median of 5 windows of 2 batches; the runner by its "
               f"host clock): " + ", ".join(f"{k} {v['img_s']:.1f} ({v['ms']:.3f} ms)"
                                            for k, v in times.items()), flush=True)
-        out[label] = dict(export_s=export_s, compile_s=compile_s, nodes=[n_nms, n_conv, n_ba],
-                          launches_pt2=[nms_n, conv_n, ba_n],
-                          launches_aoti=[nms_a, conv_a, ba_a],
-                          launches_eager=[eager_nms, eager_conv, eager_ba], decode_err_px=err_px,
+        out[label] = dict(export_s=export_s, compile_s=compile_s,
+                          nodes=[n_nms, n_conv, n_ba, n_q],
+                          launches_pt2=[nms_n, conv_n, ba_n, q_n],
+                          launches_aoti=[nms_a, conv_a, ba_a, q_a],
+                          launches_eager=[eager_nms, eager_conv, eager_ba, eager_q],
+                          decode_err_px=err_px,
                           decode_err_score=err_score, equal_to_eager=same,
                           det_rows_differ=rows_differ, times=times,
                           runner=rec, profile=profile, aoti_path=aoti_path)
@@ -3848,6 +3966,7 @@ def main():
     gate = phase_nms_gate(results, card, dev)
 
     nms32, nms1 = nms["by_batch"][BATCH], nms["by_batch"][1]
+    quant = results["int8"]["quantize"]
     kernels = [{"name": "greedy_nms", "route": "cuda",
                 "source": "yololp_tpu_torch/csrc/greedy_nms.cu",
                 "replaces": "yololp_tpu/ops/pallas_nms.py:29",
@@ -3917,7 +4036,17 @@ def main():
                 "bound_ms": gate["shapes"]["yololps/yolov6m b128"]["bound_ms"],
                 "bound_by": "bytes", "library_ms": None, "matches_plain": True,
                 "export_nodes": gate["export"]["nodes"],
-                "aoti_nodes": gate["export"]["inductor_nodes"]}]
+                "aoti_nodes": gate["export"]["inductor_nodes"]},
+               {"name": "quantize", "route": "cuda",
+                "source": "yololp_tpu_torch/csrc/quantize.cu",
+                "replaces": None, "launches": quant["launches"], "max_abs_err": 0.0,
+                "ms": quant["ms"], "device_ms": quant["device_ms"],
+                "plain_ms": quant["plain_ms"], "bound_ms": quant["bound_ms"],
+                "bound_by": "bytes", "library_ms": None, "matches_plain": True,
+                "checked_at_plan_shapes": len(results["int8"]["quantize_timed"]),
+                "batch": EPILOGUE_BATCH, "recorded": quant["recorded"],
+                "export_launches": {"int8": export["int8"]["launches_pt2"][3]},
+                "aoti_launches": {"int8": export["int8"]["launches_aoti"][3]}}]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -560,6 +560,84 @@ def _gate_cases():
     return cases
 
 
+# ---------------- quantize_codes (csrc/quantize.cu) ----------------
+
+# the yololps int8 plan's quantizes of a b128 batch at 640: the largest (the
+# input of backbone.ERBlock_2_down) and the head's 20x20 maps (its smallest);
+# tests/test_torch_quantize.py holds them to the plan
+QUANTIZE_SHAPES = {"largest": (128, 32, 320, 320), "head_20x20": (128, 256, 20, 20)}
+QUANTIZE_AMAX = 6.0  # a calibrated amax that 2 N(0, 1) passes: some codes clip
+
+
+def quantize_edges(dtype=torch.float32):
+    """Values where the codes are hardest at inv_scale 1: every half-way point
+    and every integer of the code range, the clip's edges and beyond them,
+    +-inf, -0.0, the dtype's subnormals and large finite values."""
+    fi = torch.finfo(dtype)
+    k = torch.arange(-128, 128, dtype=torch.float32)
+    special = torch.tensor([float("inf"), -float("inf"), -0.0, 0.0, 127.49, 127.5, 128.5, -128.5,
+                            -128.49, -129.0, 200.0, -200.0, 1e30, -1e30])
+    tiny = torch.tensor([fi.tiny / 2, -fi.tiny / 2, fi.tiny * 2 ** -5, fi.max, -fi.max])
+    return torch.cat([k + 0.5, k, k + 0.25, special, tiny]).to(dtype)
+
+
+def quantize_operand(layout, shape, dtype, gen, dev):
+    """2 N(0, 1) in `dtype`: `shape` channels_last ("nhwc"), contiguous
+    ("nchw"), or an offset view of channels_last layout whose base is 3
+    elements past an allocation."""
+    n = int(np.prod(shape))
+    if layout == "offset":
+        flat = (2 * torch.randn(3 + n, generator=gen, device=dev)).to(dtype)
+        s0, c, h, w = shape
+        return flat[3:].view(s0, h, w, c).permute(0, 3, 1, 2)
+    t = (2 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    return t.contiguous(memory_format=torch.channels_last) if layout == "nhwc" else t
+
+
+def _quantize_cases():
+    """The edges at inv_scale 1 and at a calibrated scale, in both dtypes;
+    fp32 NCHW and NHWC; an odd count; offset views; then the plan's largest
+    and smallest maps at b128, bf16 channels_last."""
+    from yololp_tpu_torch.ops.cuda_conv import inv_host_scale
+
+    inv = inv_host_scale(QUANTIZE_AMAX)
+
+    def edges(dtype, scale):
+        return lambda dev: (quantize_edges(dtype).to(dev), scale)
+
+    def operand(layout, shape, dtype):
+        return lambda dev: (quantize_operand(layout, shape, dtype,
+                                             torch.Generator(device=dev).manual_seed(24), dev),
+                            inv)
+
+    cases = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cases[f"edges_{dname}"] = edges(dtype, 1.0)
+        cases[f"edges_scaled_{dname}"] = edges(dtype, inv)
+        cases[f"odd_{dname}"] = operand("nhwc", (1, 277, 3, 5), dtype)
+        cases[f"offset_{dname}"] = operand("offset", (2, 12, 5, 7), dtype)
+    cases["nchw_fp32"] = operand("nchw", (8, 64, 40, 40), torch.float32)
+    cases["nhwc_fp32"] = operand("nhwc", (8, 64, 40, 40), torch.float32)
+    for name, shape in QUANTIZE_SHAPES.items():
+        cases[f"{name}_bf16"] = operand("nhwc", shape, torch.bfloat16)
+    return cases
+
+
+def check_quantize(args, got, what):
+    """The kernel's codes equal the plain version's bit for bit, with x's
+    strides."""
+    from yololp_tpu_torch.ops.cuda_quantize import quantize_codes_plain
+
+    x, inv_scale = args
+    if got.dtype != torch.int8 or got.stride() != x.stride():
+        raise AssertionError(f"quantize_codes {what}: {got.dtype}, strides {got.stride()}, "
+                             f"x's {x.stride()}")
+    want = quantize_codes_plain(x, inv_scale)
+    if not torch.equal(got, want):
+        raise AssertionError(f"quantize_codes {what}: {int((got != want).sum())} of {got.numel()} "
+                             "codes differ from the plain version")
+
+
 # ---------------- every op ----------------
 
 
@@ -651,6 +729,14 @@ OPS = {
          (lambda dev: (_z(dev, 2, 8, 290).transpose(0, 1), 0.4, False), ValueError,
           "contiguous")],
         lambda dev: (_z(dev, 2, 0, 290), 0.4, False)),
+    "quantize_codes": OpCases(
+        _quantize_cases,
+        check_quantize,
+        [(lambda dev: (_z(dev, 2, 8, 4, 4, dtype=torch.int8), 1.0), TypeError, "floating"),
+         (lambda dev: (_z(dev, 2, 8, 4, 4, dtype=torch.float16), 1.0), TypeError, "float32"),
+         (lambda dev: (_z(dev, 2, 8, 4, 4, dtype=torch.float64), 1.0), TypeError, "float32"),
+         (lambda dev: (_z(dev, 2, 8, 4, 8)[..., ::2], 1.0), ValueError, "dense")],
+        lambda dev: (_z(dev, 0, 8, 4, 4, dtype=torch.bfloat16), 1.0)),
 }
 
 

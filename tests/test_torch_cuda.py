@@ -15,7 +15,8 @@ and ReLU bit for bit and SiLU within 1 bf16 / 2 fp32 ulps of the plain
 version and of PyTorch's unfused `add_` + activation, and its residual
 form bit for bit with the plain form's kernel then PyTorch's alpha * x and
 add, and with its plain version where the epilogues agree; nms_gate, every
-output bit for bit (NaN too). Each op refuses what its kernel does not
+output bit for bit (NaN too); quantize_codes, the codes bit for bit with
+the input's strides. Each op refuses what its kernel does not
 take, returns an empty output without a launch, and, on a second card,
 leaves the caller's current device as it was. The residual form's
 decomposition, as AOTInductor compiles it, equals the kernel bit for bit.
@@ -255,3 +256,32 @@ def test_select_candidates_on_the_card_launches_the_gate_kernel_once(cuda_device
         select_candidates(pred.double(), 0.4, 512)
 
 
+
+
+@pytest.mark.cuda
+def test_the_int8_quantize_counts_its_kernel_launches(cuda_device):
+    """`cuda_conv.quantize_codes` on the card: one `quantize` launch a
+    non-empty input, counted in `int8.quantize_fused` while spans record;
+    an empty input opens its span and launches nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yololp_tpu_torch.ops import cuda_conv
+    from yololp_tpu_torch.ops.cuda_quantize import quantize_codes_plain
+    from yololp_tpu_torch.utils import profiler as P
+
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    x = (2 * torch.randn(4, 32, 40, 40, generator=gen, device=cuda_device)).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    inv = cuda_conv.inv_host_scale(6.0)
+    P.reset_spans()
+    before = _build.launches("quantize")
+    with profile(activities=[ProfilerActivity.CPU]):
+        codes = [cuda_conv.quantize_codes(t, inv) for t in (x, x[:0], x[:2])]
+    torch.cuda.synchronize()
+    c, totals = P.counters(), P.span_totals()
+    P.reset_spans()
+    assert _build.launches("quantize") == before + 2
+    assert c["int8.quantize_fused"] == 2 and totals["int8.quantize"]["count"] == 3
+    assert c["int8.quantized"] == x.numel() + x[:2].numel()
+    for t, got in zip((x, x[:0], x[:2]), codes):
+        assert got.stride() == t.stride() and torch.equal(got, quantize_codes_plain(t, inv))

@@ -366,6 +366,24 @@ def test_anchor_reader_reads_the_counter_an_image_and_nothing_without_it():
     assert read({"batch": 4}) is None  # no profiled slice
 
 
+def test_quantize_fused_reader_reads_the_share_and_nothing_without_its_data():
+    """`quantize_fused.int8`: `int8.quantize_fused` over the `int8.quantize`
+    spans, in percent; nothing where no quantize ran or none launched the
+    kernel (the counter missing: the plain version, or a program without
+    the kernel)."""
+    read = S.reader("quantize_fused.int8")
+    assert read({}) is None
+    with recording():
+        with P.annotate("int8.quantize"):
+            pass
+    assert read({}) is None
+    with recording():
+        P.count("int8.quantize_fused", 1)
+        with P.annotate("int8.quantize"):
+            pass
+    assert read({}) == 50.0
+
+
 def test_the_readers_are_the_benchmarks_per_layer_metrics():
     spec = S.load(ROOT)
     names = {m["name"]: m for m in spec["per_layer"]}
@@ -432,8 +450,10 @@ def test_the_int8_run_records_its_spans_and_counts_its_launches(batch):
     """An Inferer serving its int8 plan runs inside the served path's spans,
     opens `int8.quantize` inside the model's spans once a float -> code
     quantize, and counts the plan's 68 int8 conv launches and the elements
-    it quantized; the float path opens no `int8.*` span and counts
-    nothing of them."""
+    it quantized; `int8.quantize_fused` counts the quantize kernel's
+    launches, so the CPU's plain version leaves it and `quantize_fused.int8`
+    empty (the card test reads it there); the float path opens no `int8.*`
+    span and counts nothing of them."""
     from yololp_tpu_torch.quant import int8_infer
     from yololp_tpu_torch.quant.quantize import calibrate
 
@@ -442,7 +462,7 @@ def test_the_int8_run_records_its_spans_and_counts_its_launches(batch):
     with recording():
         inf._run(batch)
     assert set(P.span_totals()) == set(SERVED)
-    assert not {"int8.convs", "int8.quantized"} & set(P.counters())
+    assert not {"int8.convs", "int8.quantized", "int8.quantize_fused"} & set(P.counters())
     amax = calibrate(inf.model, [batch], device="cpu")
     inf.use_int8(amax)
     floats = []  # the float inputs of the int8 modules: each quantized once
@@ -468,6 +488,8 @@ def test_the_int8_run_records_its_spans_and_counts_its_launches(batch):
     assert c["int8.convs"] == 68 and int(num.min()) > 0
     assert totals["int8.quantize"]["count"] == len(floats) > 0
     assert c["int8.quantized"] == sum(floats)
+    assert "int8.quantize_fused" not in c
+    assert S.reader("quantize_fused.int8")({}) is None
     P.reset_spans()
     again = inf._run(batch)  # recording nothing, the same bits
     assert P.counters() == {} and all(torch.equal(a, b) for a, b in zip((det, valid, num), again))

@@ -5,11 +5,12 @@
 // and csrc/bias_act.cu through the libraries ops/_build.py builds (their
 // extern "C" launchers), with the checks of ops/cuda_nms.py,
 // ops/cuda_conv.py and ops/cuda_bias_act.py, on the current stream of the
-// tensors' card, and raise on any refusal. matmul, matmul_nt and nms_gate
-// are declared only: no exported program calls the first two, and a package
-// that export.compile_aoti writes calls neither nms_gate nor bias_act
-// (Inductor fuses both from their plain arithmetic there). A package compiled
-// from the .pt2 as it stands calls both, and this runner has no nms_gate.
+// tensors' card, and raise on any refusal. matmul, matmul_nt, nms_gate and
+// quantize_codes are declared only: no exported program calls the first two,
+// and a package that export.compile_aoti writes calls none of nms_gate,
+// quantize_codes and bias_act (Inductor fuses them from their plain
+// arithmetic there). A package compiled from the .pt2 as it stands calls
+// them, and this runner has no nms_gate or quantize_codes.
 //
 // An AOTInductor package calls a custom op through the dispatcher, so a C++
 // process that links this file runs the package's NMS and int8 convs in the
@@ -247,6 +248,7 @@ TORCH_LIBRARY(yololp_torch, m) {
   m.def("nms_gate(Tensor pred, float conf_thres, bool compat_ad4_bug) -> "
         "(Tensor box, Tensor score, Tensor rest, Tensor passed)",
         {at::Tag::needs_exact_strides});
+  m.def("quantize_codes(Tensor x, float inv_scale) -> Tensor", {at::Tag::needs_exact_strides});
 }
 
 TORCH_LIBRARY_IMPL(yololp_torch, CUDA, m) {

@@ -16,7 +16,9 @@ not reused while the map points at it).
 
 While spans record (utils/profiler.py), each call of `int8_conv` adds 1 to
 the counter `int8.convs`, and each float -> code quantize (`quantize_codes`)
-is the span `int8.quantize` and adds its elements to `int8.quantized`.
+is the span `int8.quantize`, adds its elements to `int8.quantized` and 1 to
+`int8.quantize_fused` (the quantizes that took the op of
+ops/cuda_quantize.py).
 
 Epilogue (per output channel o): y = acc * a[o] + b[o] as a multiply and an
 add rounded separately, then int8 `clip(round_half_even(y), 0 if relu else
@@ -221,11 +223,13 @@ def conv3x3_int8_fused(x_q, w9, a, b, relu: bool = True,
 def quantize_codes(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
     """clip(round_half_even(x / scale), -128, 127) as int8, in fp32, with the
     division as the jitted JAX package computes it (its scale is a trace-time
-    constant): a multiply by `inv_scale`, from `inv_host_scale`. The span
+    constant): a multiply by `inv_scale`, from `inv_host_scale`. The op
+    `yololp_torch::quantize_codes` (ops/cuda_quantize.py: csrc/quantize.cu on
+    the card, which counts its launches in `int8.quantize_fused`). The span
     `int8.quantize`, counting its elements in `int8.quantized`."""
     with profiler.annotate("int8.quantize", x.device):
         profiler.count("int8.quantized", x.numel())
-        return torch.round(x.float() * inv_scale).clamp(-128.0, 127.0).to(torch.int8)
+        return torch.ops.yololp_torch.quantize_codes(x, float(inv_scale))
 
 
 def host_scale(amax: float) -> torch.Tensor:

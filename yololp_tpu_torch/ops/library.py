@@ -24,6 +24,7 @@ the tracer sees as one opaque node:
     yololp_torch::matmul_nt         ops/cuda_matmul.py csrc/mxu_matmul.cu
     yololp_torch::bias_act          ops/cuda_bias_act.py csrc/bias_act.cu
     yololp_torch::nms_gate          ops/cuda_nms_gate.py csrc/nms_gate.cu
+    yololp_torch::quantize_codes    ops/cuda_quantize.py csrc/quantize.cu
 
 Each op has three implementations, chosen by the dispatcher from the
 device of its tensors: CUDA is the kernel's launcher (`*_cuda`, which checks
@@ -32,9 +33,9 @@ the kernel's plain version (the CPU's kernel, not a fallback), and a fake
 one, the record's check and then its fake, gives the output's shape, dtype
 and strides without reading data. The wrappers the call sites use
 (`cuda_nms.greedy_nms_mask`, `cuda_conv.int8_conv`, `cuda_matmul.matmul`,
-`cuda_matmul.matmul_nt`, `cuda_bias_act.bias_act`, `cuda_nms_gate.nms_gate`)
-call the ops, so eager runs and exported programs reach each kernel through
-one entry point.
+`cuda_matmul.matmul_nt`, `cuda_bias_act.bias_act`, `cuda_nms_gate.nms_gate`,
+`cuda_conv.quantize_codes`) call the ops, so eager runs and exported
+programs reach each kernel through one entry point.
 
 `int8_conv` takes its output dtype as the kernel's mode number (`out_mode`:
 0 int8, 1 float32, 2 bfloat16, 3 int32; `cuda_conv.out_mode`), not as a
@@ -56,10 +57,11 @@ from __future__ import annotations
 
 import torch
 
-from yololp_tpu_torch.ops import cuda_bias_act, cuda_conv, cuda_matmul, cuda_nms, cuda_nms_gate
+from yololp_tpu_torch.ops import (cuda_bias_act, cuda_conv, cuda_matmul, cuda_nms, cuda_nms_gate,
+                                  cuda_quantize)
 
 NAMESPACE = "yololp_torch"
-_MODULES = (cuda_nms, cuda_conv, cuda_matmul, cuda_bias_act, cuda_nms_gate)
+_MODULES = (cuda_nms, cuda_conv, cuda_matmul, cuda_bias_act, cuda_nms_gate, cuda_quantize)
 RECORDS = tuple(op for m in _MODULES for op in m.OPS)
 SCHEMAS = {op.name: op.schema for op in RECORDS}
 
